@@ -18,7 +18,24 @@ Phases, each fatal on failure:
      times of the kernel, its plain version and a torch.linalg yardstick;
   4. end to end: the 5-asset portfolio workflow (walk-forward GP fit,
      ARIMA, correlations, 5 strategies, backtest) on the card in float32,
-     cold then warm, checked against tests/goldens/portfolio_e2e_goldens.json.
+     cold then warm, checked against tests/goldens/portfolio_e2e_goldens.json;
+  5. hold the blocked tier's panel kernel against its plain version in
+     float32: the L panel and Σ log diag at every panel height of N = 875
+     (B = 1 and 8), and the blocked NLL's values and gradients at N = 875
+     and N = 896 against the same call on CPU copies (phase 2's
+     tolerances);
+  6. the single-asset pipeline (`StockPredictor.run_ticker`, 8-entry menu
+     × daily/weekly/monthly on a 2021-2024 daily history) on the card in
+     float32, cold then warm: the daily entries through the blocked tier,
+     the weekly and monthly ones through the fused tiers, checked against
+     tests/goldens_torch/single_asset_2021_2024.json (the JAX package's
+     float64 run) and, where JAX's own float32 departs from it,
+     single_asset_2021_2024_f32.json (its float32 run; both written by
+     tools/make_torch_goldens.py): each menu entry's final loss and train
+     MSE, the winners, α, β, the blended posterior in sample and over the
+     horizon (`compare_single_asset`); a third pass under the
+     profiler for the device's busy share; the panel kernel's time at each
+     panel height of the path.
 Then it prints the card's name and power limit, one JSON line describing
 every kernel, and the last line {"ok": true, "device": {...}}.
 
@@ -101,6 +118,88 @@ def run_workflow(data_root: str, device="cuda", dtype=torch.float32, maxiter: in
     if timings is not None:
         timings.update(step4_s=t_step4 - t0, portfolio_s=t_end - t_step4)
     return t_end - t0, quality
+
+
+SINGLE_ASSET_TICKER = "TGT"
+SINGLE_ASSET_DATES = dict(train_start_date="2021-01-04", train_end_date="2024-05-10",
+                          test_start_date="2024-05-13", test_end_date="2024-05-17")
+SINGLE_ASSET_GOLDENS = os.path.join(REPO, "tests", "goldens_torch",
+                                    "single_asset_2021_2024.json")
+SINGLE_ASSET_GOLDENS_F32 = os.path.join(REPO, "tests", "goldens_torch",
+                                        "single_asset_2021_2024_f32.json")
+
+
+def make_single_asset_market(root: str, seed: int = 3, first: str = "2021-01-04",
+                             last: str = "2024-05-31") -> str:
+    """The single-asset market: business days `first`..`last`, a
+    daily close built as in benchmarks/bench_single_asset.make_market (a
+    random-walk trend plus a small idiosyncratic walk), and its weekly (W)
+    and monthly (ME) resamples, written as <root>/Stocks/TGT/TGT_us_{d,w,m}.csv.
+    Each weekly and monthly bar is dated by the last trading day in it,
+    not by the resample's Sunday or calendar month-end label: the blend
+    (pipelines/blend.upsample_predictions) reindexes the coarse series on
+    the daily day index, and with the labels no weekly date is a trading
+    day, so the upsampled weekly prediction is NaN everywhere and the blend
+    fit never leaves its start. Training on 2021-01-04..2024-05-10 gives
+    875 daily, 175 weekly and 40 monthly rows."""
+    import pandas as pd
+
+    from benchmarks.bench_portfolio_e2e import _write_eod
+
+    rng = np.random.default_rng(seed)
+    days = pd.bdate_range(first, last)
+    trend = np.cumsum(0.01 * rng.normal(size=len(days)))
+    close = 100 * np.exp(trend + 0.001 * rng.normal(size=len(days)).cumsum())
+    d = os.path.join(root, "Stocks", SINGLE_ASSET_TICKER)
+    _write_eod(d, f"{SINGLE_ASSET_TICKER}_us_d.csv", days, close)
+    df = pd.DataFrame({"day": days, "close": close}, index=days)
+    for tag, rule in (("w", "W"), ("m", "ME")):
+        res = df.resample(rule).last().dropna()
+        _write_eod(d, f"{SINGLE_ASSET_TICKER}_us_{tag}.csv", pd.DatetimeIndex(res["day"]),
+                   res["close"].to_numpy())
+    return root
+
+
+def run_single_asset(data_root: str, device="cuda", dtype=torch.float32, fast=None):
+    """The port's `StockPredictor.run_ticker` on the single-asset market with
+    the 8-entry default menu, σ² = 1e-5 frozen, maxiter 100, the Zero mean
+    and a 30-day horizon. Returns (elapsed_s, quality): per timescale N,
+    the menu's tiers, winner, train MSEs and losses, the (tier, N) pairs the
+    router recorded, the seconds; α, β and the blended f_mean/f_var."""
+    from portfoliooptgp_tpu_torch.models import gpr
+    from portfoliooptgp_tpu_torch.pipelines import StockPredictor
+
+    def sync():
+        if str(device).startswith("cuda"):
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    sp = StockPredictor([SINGLE_ASSET_TICKER], data_root=data_root, horizon_days=30,
+                        device=device, dtype=dtype, fast=fast, **SINGLE_ASSET_DATES)
+    train_timeframe = sp._train_timeframe
+    seconds, dispatched = {}, {}
+
+    def timed(ticker, tag):
+        gpr.DISPATCH_EVENTS.clear()
+        t = time.perf_counter()
+        out = train_timeframe(ticker, tag)
+        sync()
+        seconds[tag] = time.perf_counter() - t
+        dispatched[tag] = sorted({(e["tier"], e["n"]) for e in gpr.DISPATCH_EVENTS})
+        return out
+
+    sp._train_timeframe = timed
+    res = sp.run_ticker(SINGLE_ASSET_TICKER)
+    sync()
+    elapsed = time.perf_counter() - t0
+    timescales = {tag: dict(n=int(r.X.shape[0]), tiers=r.menu.tiers, best_index=r.kernel_index,
+                            mses=r.menu.mses, losses=r.menu.losses, seconds=seconds[tag],
+                            dispatched=dispatched[tag])
+                  for tag, r in res.timeframes.items()}
+    return elapsed, dict(timescales=timescales, alpha=res.alpha, beta=res.beta,
+                         n_daily=int(res.timeframes["d"].X.shape[0]),
+                         f_mean=res.f_mean.double().cpu().reshape(-1).tolist(),
+                         f_var=res.f_var.double().cpu().reshape(-1).tolist())
 
 
 # -- helpers ----------------------------------------------------------------
@@ -259,12 +358,13 @@ def time_forward(families, dims, B, N, masked, seed, counter, with_inverse=True)
     return k, p, lib
 
 
-def device_busy(fn, report_name):
+def device_busy(fn, report_name, kernel="stationary_nll"):
     """Run fn() under torch.profiler, tracing the device only: wall
     seconds, device seconds summed over CUDA kernels and copies, and the
-    share of the stationary NLL kernel. The raw events are summed directly
-    (`key_averages()` over the ~3·10^5 small kernels of the workflow takes
-    minutes); device time by name goes to chiprun_out/<report_name>."""
+    share of the kernels whose name holds `kernel`. The raw events are
+    summed directly (`key_averages()` over the ~3·10^5 small kernels of the
+    workflow takes minutes); device time by name goes to
+    chiprun_out/<report_name>."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -278,7 +378,7 @@ def device_busy(fn, report_name):
             total, count = by_name.get(e.name(), (0, 0))
             by_name[e.name()] = (total + e.duration_ns(), count + 1)
     device_ns = sum(t for t, _ in by_name.values())
-    kernel_ns = sum(t for name, (t, _) in by_name.items() if "stationary_nll" in name)
+    kernel_ns = sum(t for name, (t, _) in by_name.items() if kernel in name)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", report_name), "w") as fh:
         fh.write("device_ms\tcalls\tname\n")
@@ -422,6 +522,280 @@ def phase_end_to_end():
                 bound_by=bound_by)
 
 
+def panel_bound_ms(nt, B=1):
+    """Least time for one panel factor on an H100: the larger of its bytes
+    over HBM bandwidth and its fp32 operations (pw³/3 for the diagonal
+    block, pw² (nt − pw) for the row solve, pw = min(128, nt)) over the fp32
+    peak. The bytes are the lower triangle of A11 and the rows of A21 read
+    once, and the same entries of L written once: the zeros above L11's
+    diagonal are not work the factor needs (the blocked factor's L buffer
+    starts as zeros)."""
+    pw = min(128, nt)
+    nbytes = B * 2 * 4 * (pw * (pw + 1) // 2 + pw * (nt - pw))
+    flops = B * (pw ** 3 / 3 + pw * pw * (nt - pw))
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _spd(B, N, seed):
+    """(B, N, N) float32 SPD matrices on the card: AAᵀ/N + ½I from a seed."""
+    rng = np.random.default_rng(seed)
+    A = torch.tensor(rng.normal(size=(B, N, N)), dtype=torch.float64, device=DEVICE)
+    return (A @ A.mT / N + 0.5 * torch.eye(N, dtype=torch.float64, device=DEVICE)).float()
+
+
+PANEL_HEIGHTS = (875, 747, 619, 491, 363, 235, 107)  # the 7 panels of N = 875
+
+
+def phase_blocked_checks():
+    """The panel kernel against factor_panel_plain at every panel height of
+    the N = 875 path (as strided views of the trailing matrix, B ∈ {1, 8}):
+    the L panel within 3e-3 of max |L| and Σ log diag within rtol 3e-3; then
+    batched_nll_blocked on the card (the kernel) against the same call on
+    CPU copies of the float32 inputs (the plain panel factor), values (rtol
+    3e-3) and gradients of K, y and noise (normalized 2e-2) at N = 875 and
+    at the JAX package's padded N = 896. Returns the largest |Δ| of L and
+    NLLs."""
+    from portfoliooptgp_tpu_torch.ops import blocked_nll as bn
+
+    worst = 0.0
+    for B in (1, 8):
+        for nt in PANEL_HEIGHTS:
+            Ks = _spd(B, nt, nt + B)
+            panel = Ks[:, :, :min(128, nt)]
+            Lk, ldk = bn.factor_panel_cuda(panel)
+            Lp, ldp = bn.factor_panel_plain(panel)
+            torch.cuda.synchronize()
+            err = _max_err(Lk, Lp)
+            scale = float(Lp.abs().max())
+            if not (torch.all(torch.isfinite(Lk)) and err <= VALUE_RTOL * scale):
+                raise AssertionError(f"panel B={B} nt={nt}: L err {err:.3e} > "
+                                     f"{VALUE_RTOL} x {scale:.3e}")
+            _check_values(f"panel B={B} nt={nt} logdet", ldk, ldp)
+            worst = max(worst, err)
+        print(f"check panel B={B}: nt {PANEL_HEIGHTS} L max |err| {worst:.3e}", flush=True)
+    for B, N in ((1, 875), (8, 875), (8, 896)):
+        rng = np.random.default_rng(N + B)
+        K = _spd(B, N, B)
+        y = torch.tensor(rng.normal(size=(B, N)), dtype=torch.float32, device=DEVICE)
+        noise = torch.tensor(rng.uniform(0.1, 0.5, B), dtype=torch.float32, device=DEVICE)
+        outs = []
+        for dev in (DEVICE, "cpu"):
+            leaves = [x.detach().to(dev).requires_grad_(True) for x in (K, y, noise)]
+            nll = bn.batched_nll_blocked(*leaves)
+            grads = torch.autograd.grad(nll.sum(), leaves)
+            outs.append((nll.detach().to(DEVICE), [g.to(DEVICE) for g in grads]))
+        torch.cuda.synchronize()
+        verr = _check_values(f"blocked nll B={B} N={N}", outs[0][0], outs[1][0])
+        gerr = _check_grads(f"blocked nll B={B} N={N}", outs[0][1], outs[1][1])
+        worst = max(worst, _max_err(outs[0][0], outs[1][0]))
+        print(f"check blocked nll B={B} N={N}: value rel err {verr:.3e}, grad normalized "
+              f"err {gerr:.3e}", flush=True)
+    return worst
+
+
+# Tolerances of the single-asset run against the JAX goldens (PERF.md,
+# PR 4). Every healthy menu entry ends near white noise on the z-scored
+# returns (loss ≈ ½yᵀy + ½N log 2π, train MSE ≈ σ⁴ = 1e-10), and float32
+# moves where L-BFGS stops: JAX's own float32 run departs from its float64
+# run by up to 1.20 in a daily final loss and 0.30 in a weekly one, and by
+# up to 2.3% in a train MSE, on the entries it trains well. A stalled or
+# wrongly driven entry stays near its start, ≥ 18.6 (daily), 17.6 (weekly)
+# and 4.1 (monthly) above the golden loss for every entry whose start is
+# not already at the optimum. Two menu entries are float32-unstable in JAX
+# itself: index 5 (Exp + Periodic(SE) + Linear, Linear on the raw day
+# index: NaN or a stall at N = 875 and 175, a poor fit at N = 40) and
+# index 6 (Exp + Periodic(SE), whose period gradient at the start is
+# float32 rounding of sin(πd) on integer days: it stops anywhere between
+# the optimum and its start — 1245.8 daily in JAX, 1250.8 in the port on
+# the CPU, 1270.1 on the card). Where they end is rounding, so their loss
+# is only held between the optimum and the start, and their MSE not at all.
+SA_LOSS_ATOL = {"d": 2.0, "w": 0.5, "m": 0.5}  # final loss of each menu entry
+SA_MSE_RTOL = 0.05     # train MSE of each menu entry; also the winner's margin
+SA_BLEND_ATOL = 0.02   # α and β
+SA_FMEAN_RMS = 0.05    # in-sample blended f_mean, on the z-scored returns
+SA_HORIZON_ATOL = 1e-3  # horizon blended f_mean, on the z-scored returns
+SA_FVAR_RTOL = 0.02    # blended f_var, in sample and over the horizon
+
+
+def _stable(g64, g32, tol, rel):
+    """Whether JAX's float32 value g32 lies within tol of its float64 g64."""
+    return bool(np.isfinite(g32)) and abs(g32 - g64) <= tol * (abs(g64) if rel else 1.0)
+
+
+def _loss_ok(x, g64, g32, start, tol):
+    """The port's float32 final loss x of one menu entry: within tol of the
+    float64 golden g64 where JAX's float32 g32 is too; elsewhere (the entry
+    is float32-unstable in JAX itself) non-finite, or between the lowest
+    and the highest of g64, g32 and the loss before training, ± tol."""
+    if _stable(g64, g32, tol, rel=False):
+        return abs(x - g64) <= tol
+    if not np.isfinite(x):
+        return True
+    ends = [v for v in (g64, g32, start) if np.isfinite(v)]
+    return min(ends) - tol <= x <= max(ends) + tol
+
+
+def _mse_ok(x, g64, g32, tol):
+    """The port's float32 train MSE x: within rtol tol of g64 where JAX's
+    float32 is; not compared where JAX's own float32 departs."""
+    return not _stable(g64, g32, tol, rel=True) or abs(x - g64) <= tol * abs(g64)
+
+
+def compare_single_asset(q, goldens, goldens32):
+    """(ok, list of failures) of a run_single_asset quality dict against
+    the JAX float64 goldens and JAX's float32 run of the same pipeline.
+    Per timescale: N; the tiers (daily: every entry 'blocked'; weekly and
+    monthly: what the JAX router names in float32), and only those tiers in
+    the router's record; each menu entry's final loss (SA_LOSS_ATOL,
+    `_loss_ok`) and train MSE (SA_MSE_RTOL, `_mse_ok`); the winner: the float32
+    golden winner where its MSE beats every other entry's by more than
+    SA_MSE_RTOL there, else an entry whose float32 golden MSE lies within
+    SA_MSE_RTOL of the winner's (the float64 winner, index 5 on the daily
+    and monthly timescales, is float32-unstable). Then α, β, the in-sample
+    blended f_mean (RMS against float64) and f_var (against float64, within
+    SA_FVAR_RTOL plus JAX's own float32 departure: the posterior variance
+    at a training point, ≈ σ², is a float32 difference of O(1) numbers),
+    and the horizon's f_mean and f_var against float32 (the horizon mean
+    is the winners' extrapolation, and the float64 daily winner's Linear
+    trend has no float32 counterpart)."""
+    bad = []
+    for tag, g in goldens["timescales"].items():
+        t, g32 = q["timescales"][tag], goldens32["timescales"][tag]
+        if t["n"] != g["n"]:
+            bad.append(f"{tag}: N {t['n']} != {g['n']}")
+            continue
+        if t["tiers"] != g["tiers_f32"] or (tag == "d" and set(t["tiers"]) != {"blocked"}):
+            bad.append(f"{tag}: tiers {t['tiers']} != {g['tiers_f32']}")
+        seen = {tier for tier, _ in t["dispatched"]}
+        if not seen or not seen <= set(g["tiers_f32"]):
+            bad.append(f"{tag}: router recorded {t['dispatched']}")
+        for i in range(len(g["losses"])):
+            if not _loss_ok(t["losses"][i], g["losses"][i], g32["losses"][i],
+                            g["start_losses"][i], SA_LOSS_ATOL[tag]):
+                bad.append(f"{tag}: index {i} loss {t['losses'][i]:.6g} vs {g['losses'][i]:.6g} "
+                           f"(float32 {g32['losses'][i]:.6g})")
+            if not _mse_ok(t["mses"][i], g["mses"][i], g32["mses"][i], SA_MSE_RTOL):
+                bad.append(f"{tag}: index {i} MSE {t['mses'][i]:.6g} vs {g['mses'][i]:.6g} "
+                           f"(float32 {g32['mses'][i]:.6g})")
+        m32 = np.where(np.isfinite(g32["mses"]), g32["mses"], np.inf)
+        w, gw = t["best_index"], g32["best_index"]
+        clear = all(m32[i] > (1 + SA_MSE_RTOL) * m32[gw] for i in range(len(m32)) if i != gw)
+        if w != gw and (clear or not m32[w] <= (1 + SA_MSE_RTOL) * m32[gw]):
+            bad.append(f"{tag}: winner {w} (float32 golden MSE {m32[w]:.6g}) vs {gw} "
+                       f"({m32[gw]:.6g})")
+    for key in ("alpha", "beta"):
+        if not abs(q[key] - goldens[key]) <= SA_BLEND_ATOL:
+            bad.append(f"{key} {q[key]:.6g} vs {goldens[key]:.6g}")
+    n = goldens["n_daily"]
+    fm, fv = np.asarray(q["f_mean"]), np.asarray(q["f_var"])
+    gm, gv = np.asarray(goldens["f_mean"]), np.asarray(goldens["f_var"])
+    hm, hv = np.asarray(goldens32["f_mean"])[n:], np.asarray(goldens32["f_var"])
+    if fm.shape != gm.shape or fv.shape != gv.shape or not np.all(np.isfinite(fm) & np.isfinite(fv)):
+        bad.append(f"f_mean {fm.shape} / f_var {fv.shape} shapes or non-finite values")
+        return False, bad
+    rms = float(np.sqrt(np.mean((fm[:n] - gm[:n]) ** 2)))
+    if not rms <= SA_FMEAN_RMS:
+        bad.append(f"in-sample f_mean RMS {rms:.4g} > {SA_FMEAN_RMS}")
+    own = float(np.max(np.abs(hv[:n] / gv[:n] - 1)))
+    errs = {"horizon f_mean |err|": (float(np.max(np.abs(fm[n:] - hm))), SA_HORIZON_ATOL),
+            "in-sample f_var rel err": (float(np.max(np.abs(fv[:n] / gv[:n] - 1))),
+                                        own + SA_FVAR_RTOL),
+            "horizon f_var rel err": (float(np.max(np.abs(fv[n:] / hv[n:] - 1))),
+                                      SA_FVAR_RTOL)}
+    for name, (err, lim) in errs.items():
+        if not err <= lim:
+            bad.append(f"{name} {err:.4g} > {lim:.4g}")
+    return not bad, bad
+
+
+def _single_asset_report(label, elapsed, q):
+    print(f"phase 6 single asset f32 {label}: {elapsed:.2f} s", flush=True)
+    for tag, t in q["timescales"].items():
+        print(f"  {tag}: N={t['n']} {t['seconds']:.2f} s winner {t['best_index']} tiers "
+              f"{t['tiers']} router {t['dispatched']}", flush=True)
+    print(f"  alpha {q['alpha']:.6f} beta {q['beta']:.6f}", flush=True)
+
+
+def phase_single_asset():
+    """The single-asset pipeline on the card in float32, cold then warm,
+    against the JAX float64 goldens, then once more under the profiler; the
+    panel kernel's launches in the cold run; the kernel's time at every
+    panel height of N = 875, and at nt = 875 beside its plain version, its
+    bound and torch.linalg.cholesky on the same matrix."""
+    from portfoliooptgp_tpu_torch.ops import blocked_nll as bn
+    from portfoliooptgp_tpu_torch.ops import stationary_nll as st
+
+    with open(SINGLE_ASSET_GOLDENS) as fh:
+        goldens = json.load(fh)
+    with open(SINGLE_ASSET_GOLDENS_F32) as fh:
+        goldens32 = json.load(fh)
+    with tempfile.TemporaryDirectory() as root:
+        make_single_asset_market(root, goldens["seed"])
+        for counts in (bn.LAUNCHES, st.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+        cold, q = run_single_asset(root, DEVICE)
+        launches = bn.LAUNCHES["blocked_panel"]
+        fused = st.LAUNCHES["stationary_nll"] + st.LAUNCHES["stationary_nll_general"]
+        _single_asset_report("cold", cold, q)
+        warm, q_warm = run_single_asset(root, DEVICE)
+        _single_asset_report("warm", warm, q_warm)
+        busy = device_busy(lambda: run_single_asset(root, DEVICE), "single_asset_profile.txt",
+                           kernel="blocked_panel")
+    if launches < 1:
+        raise AssertionError("the single-asset run launched no blocked_panel kernel")
+    if fused < 1:
+        raise AssertionError("the single-asset run launched no stationary NLL kernel")
+    n = goldens["n_daily"]
+    for label, qq in (("cold", q), ("warm", q_warm)):
+        print(f"  {label} " + json.dumps({tag: dict(best_index=t["best_index"],
+                                                    losses=t["losses"], mses=t["mses"])
+                                          for tag, t in qq["timescales"].items()}), flush=True)
+        fm, fv, hm, hv = (np.asarray(x)[n:] for x in (qq["f_mean"], qq["f_var"],
+                                                       goldens32["f_mean"], goldens32["f_var"]))
+        print(f"  {label} horizon against JAX float32: f_mean max |err| "
+              f"{np.max(np.abs(fm - hm)):.4g}, f_var max rel err "
+              f"{np.max(np.abs(fv / hv - 1)):.4g}", flush=True)
+    for label, qq in (("cold", q), ("warm", q_warm)):
+        ok, bad = compare_single_asset(qq, goldens, goldens32)
+        if not ok:
+            raise AssertionError(f"{label} single-asset run does not match the goldens: {bad}")
+    rms = float(np.sqrt(np.mean((np.asarray(q["f_mean"][:n]) - goldens["f_mean"][:n]) ** 2)))
+    print(f"  goldens MATCH: alpha {q['alpha']:.6f} ({goldens['alpha']:.6f}), beta "
+          f"{q['beta']:.3g} ({goldens['beta']:.3g}), in-sample f_mean RMS {rms:.4g}; "
+          f"blocked_panel launches {launches}, stationary NLL launches {fused}", flush=True)
+    if busy["device_s"] > 0:
+        print(f"  profiled warm pass: {busy['wall_s']:.2f} s wall, device busy "
+              f"{busy['device_s']:.3f} s ({100 * busy['device_s'] / warm:.1f}% of the "
+              f"unprofiled warm pass), blocked_panel kernel {busy['kernel_s']:.3f} s",
+              flush=True)
+    else:
+        print("  profiled warm pass: the profiler recorded no device events; device busy "
+              "share not measured", flush=True)
+
+    Ks = _spd(1, 875, 875)
+    with torch.no_grad():
+        per_height = {nt: cuda_ms(lambda nt=nt: bn.factor_panel_cuda(
+            Ks[:, 875 - nt:, 875 - nt:875 - nt + min(128, nt)]), reps=50)
+            for nt in PANEL_HEIGHTS}
+        p = cuda_ms(lambda: bn.factor_panel_plain(Ks[:, :, :128]), reps=50)
+        lib = cuda_ms(lambda: torch.linalg.cholesky(Ks), reps=50)
+        whole = cuda_ms(lambda: bn.blocked_cholesky(Ks), reps=20)
+    k = per_height[875]
+    bound, bound_by = panel_bound_ms(875)
+    total_bound = sum(panel_bound_ms(nt)[0] for nt in PANEL_HEIGHTS)
+    print(f"  panel nt=875 B=1: kernel {k:.4f} ms, plain {p:.4f} ms, bound {bound:.6f} ms "
+          f"({bound_by}); torch.linalg.cholesky (1, 875, 875) {lib:.4f} ms; the whole "
+          f"blocked factor (7 panels + trailing matmuls) {whole:.4f} ms, kernel summed over "
+          f"the 7 panel heights {sum(per_height.values()):.4f} ms, panel bounds summed "
+          f"{total_bound:.6f} ms", flush=True)
+    print("  kernel ms by panel height: " + json.dumps(
+        {nt: round(ms, 4) for nt, ms in per_height.items()}), flush=True)
+    return dict(launches=launches, ms=k, plain_ms=p, library_ms=lib, bound_ms=bound,
+                bound_by=bound_by, cold_s=cold, warm_s=warm)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
@@ -436,10 +810,13 @@ def main() -> int:
 
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
     phase_build()
     errs = phase_checks()
     head = phase_headline()
     e2e = phase_end_to_end()
+    errs["blocked_panel"] = phase_blocked_checks()
+    sa = phase_single_asset()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
@@ -456,7 +833,14 @@ def main() -> int:
              launches=head["launches"], max_abs_err=errs["stationary_nll"],
              ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
              bound_by=head["bound_by"], library_ms=head["library_ms"]),
+        dict(name="blocked_panel", route="cuda",
+             source="portfoliooptgp_tpu_torch/csrc/blocked_panel.cu",
+             replaces="portfoliooptgp_tpu/ops/pallas/blocked_nll.py:70",
+             launches=sa["launches"], max_abs_err=errs["blocked_panel"],
+             ms=sa["ms"], plain_ms=sa["plain_ms"], bound_ms=sa["bound_ms"],
+             bound_by=sa["bound_by"], library_ms=sa["library_ms"]),
     ]
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -13,9 +13,11 @@ them in the JAX package's `jax.tree.leaves` order. Entry points take
 runs float32 on the TPU, where x64 is off) and raise on a machine without
 a GPU instead of dropping to the CPU. Tests pass ``device="cpu"``.
 
-Kernels: `ops/stationary_nll.py` launches the hand-written CUDA kernel in
-`csrc/stationary_nll.cu` (built with nvcc at first use into `build/`) for
-CUDA tensors, and its plain PyTorch version for CPU tensors.
+Kernels: `ops/stationary_nll.py` and `ops/blocked_nll.py` launch the
+hand-written CUDA kernels in `csrc/stationary_nll.cu` (the fused NLL
+tiers) and `csrc/blocked_panel.cu` (the blocked tier's panel factor),
+built with nvcc at first use into `build/`, for CUDA tensors, and their
+plain PyTorch versions for CPU tensors.
 """
 
 from portfoliooptgp_tpu_torch.device import resolve_device

@@ -3,8 +3,10 @@
 Port of portfoliooptgp_tpu/data/handler.py: `process_data(...)` ->
 (X, Y, dates, (y_mean, y_std), (x_mean, x_std)) with X and Y z-scored,
 returned as (N, 1) tensors on the handler's device and dtype (the JAX
-package returns arrays of its default float type). Fetching over the
-network and the entropy diagnostics are not ported (ROADMAP.md).
+package returns arrays of its default float type), for daily, weekly and
+monthly files alike; `generate_future_dates` gives the horizon grid.
+Fetching over the network and the entropy diagnostics are not ported
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import numpy as np
+import pandas as pd
 
 from portfoliooptgp_tpu_torch.data import calendar as cal
 from portfoliooptgp_tpu_torch.data import loader, transforms
@@ -86,3 +89,16 @@ class DataHandler:
         if not all(a.shape == arrays[0].shape for a in arrays):
             raise ValueError("All input arrays should have the same shape")
         return np.concatenate(arrays, axis=1)
+
+    def generate_future_dates(self, ticker, period="d", total_days=90,
+                              file_type="Stocks", x_stats=None):
+        """(M, 1) day indices of the horizon grid after the file's last date
+        (GPR/data_handler.py:67-90), z-scored by `x_stats` when given."""
+        df = loader.load_frame(self.data_root, file_type, ticker, period)
+        last = pd.to_datetime(df["date"]).max()
+        fut = cal.future_dates(last, period, total_days)
+        x = cal.days_since(pd.Series(fut), self.train_start_date).astype(float)
+        if x_stats is not None:
+            x_mean, x_std = x_stats
+            x = (x - x_mean) / x_std
+        return as_tensor(x.reshape(-1, 1), self.device, self.dtype)

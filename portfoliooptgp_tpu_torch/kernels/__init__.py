@@ -1,9 +1,17 @@
-"""Kernels and mean functions of the main path (the full menu of the JAX
-package's kernels/__init__.py is listed in ROADMAP.md)."""
+"""Kernels and mean functions (the JAX package's `Constant` and `White`
+kernels are listed in ROADMAP.md)."""
 
 from portfoliooptgp_tpu_torch.device import DEFAULT_DEVICE, DEFAULT_DTYPE
 from portfoliooptgp_tpu_torch.kernels.base import Kernel, Product, Sum, normalize_active_dims
-from portfoliooptgp_tpu_torch.kernels.means import MeanFunction, Zero
+from portfoliooptgp_tpu_torch.kernels.linear import Linear, Polynomial
+from portfoliooptgp_tpu_torch.kernels.means import (
+    ConstantMean,
+    LinearMean,
+    MeanFunction,
+    PolynomialMean,
+    Zero,
+)
+from portfoliooptgp_tpu_torch.kernels.periodic import Periodic
 from portfoliooptgp_tpu_torch.kernels.stationary import (
     Exponential,
     Matern12,
@@ -13,6 +21,23 @@ from portfoliooptgp_tpu_torch.kernels.stationary import (
     SquaredExponential,
     Stationary,
 )
+
+
+def default_kernel_menu(*, device=DEFAULT_DEVICE, dtype=DEFAULT_DTYPE):
+    """The reference's 8-kernel selection menu (GPR/main.py:105-114), fresh
+    parameters on every call, in the JAX package's order."""
+    o = dict(device=device, dtype=dtype)
+    SE, M12, RQ = SquaredExponential, Matern12, RationalQuadratic
+    return [
+        SE.create(**o),
+        M12.create(**o),
+        RQ.create(**o),
+        Exponential.create(**o),
+        SE.create(**o) + M12.create(**o),
+        Exponential.create(**o) + Periodic.create(SE.create(**o), **o) + Linear.create(**o),
+        Exponential.create(**o) + Periodic.create(SE.create(**o), **o),
+        SE.create(**o) * M12.create(**o),
+    ]
 
 
 def composite_kernel(input_dim, kernel1_cls=Exponential, kernel2_cls=Exponential,
@@ -28,6 +53,8 @@ def composite_kernel(input_dim, kernel1_cls=Exponential, kernel2_cls=Exponential
 
 __all__ = [
     "Kernel", "Sum", "Product", "SquaredExponential", "Matern12", "Matern32",
-    "Matern52", "Exponential", "RationalQuadratic", "Stationary",
-    "MeanFunction", "Zero", "composite_kernel", "normalize_active_dims",
+    "Matern52", "Exponential", "RationalQuadratic", "Periodic", "Linear",
+    "Polynomial", "Stationary", "MeanFunction", "Zero", "ConstantMean",
+    "LinearMean", "PolynomialMean", "default_kernel_menu", "composite_kernel",
+    "normalize_active_dims",
 ]

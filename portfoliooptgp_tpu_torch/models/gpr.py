@@ -10,9 +10,13 @@ JAX package's `jax.vmap` over stacked restarts is that axis.
 
 `batched_neg_log_marginal_likelihood` routes by kernel structure and N
 exactly as the JAX router does (`nll_tier` names the same tiers). The
-fused tiers launch the CUDA kernel of ops/stationary_nll.py; the tiers
-whose kernels are not ported yet ('pallas_dense', 'blocked',
-'blocked_hinv') raise NotImplementedError rather than run a plain path.
+fused tiers launch the CUDA kernel of ops/stationary_nll.py, the
+'blocked' tier the panel kernel of ops/blocked_nll.py; the tiers whose
+kernels are not ported yet ('pallas_dense', 'blocked_hinv') raise
+NotImplementedError rather than run a plain path.
+
+A mean function returns (N, 1) (`Zero`) or (B, N, 1); `_err` brings the
+residual Y − μ(X) to (B, N, P) either way.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from portfoliooptgp_tpu_torch.device import DEFAULT_DEVICE, DEFAULT_DTYPE, resol
 from portfoliooptgp_tpu_torch.kernels.base import Kernel, Product, Sum
 from portfoliooptgp_tpu_torch.kernels.means import MeanFunction, Zero
 from portfoliooptgp_tpu_torch.models.likelihoods import Gaussian
+from portfoliooptgp_tpu_torch.ops import blocked_nll as blocked_mod
 from portfoliooptgp_tpu_torch.ops import linalg
 from portfoliooptgp_tpu_torch.params import batch_size, tree_leaves, tree_to
 
@@ -62,11 +67,17 @@ def _noisy_kernel(model: GPR, X):
     return linalg.add_diag(model.kernel.K(X), model.likelihood.variance)
 
 
+def _err(model: GPR, X, Y):
+    """Y − μ(X) as (B, N, P)."""
+    err = Y - model.mean_function(X)
+    return err.expand(batch_size(model), *Y.shape)
+
+
 def log_marginal_likelihood(model: GPR, X, Y):
     L = linalg.cholesky(_noisy_kernel(model, X))
-    err = Y - model.mean_function(X)
-    n, p = err.shape
-    quad = linalg.mahalanobis_from_chol(L, err.expand(L.shape[0], n, p))
+    err = _err(model, X, Y)
+    n, p = Y.shape
+    quad = linalg.mahalanobis_from_chol(L, err)
     logdet = linalg.logdet_from_chol(L)
     return -0.5 * quad - 0.5 * p * logdet - 0.5 * n * p * math.log(2.0 * math.pi)
 
@@ -77,8 +88,8 @@ def neg_log_marginal_likelihood(model: GPR, X, Y):
 
 def posterior(model: GPR, X, Y) -> GPRPosterior:
     L = linalg.cholesky(_noisy_kernel(model, X))
-    err = Y - model.mean_function(X)
-    alpha = linalg.chol_solve(L, err.expand(L.shape[0], *err.shape))
+    err = _err(model, X, Y)
+    alpha = linalg.chol_solve(L, err)
     return GPRPosterior(L=L, alpha=alpha, X=X, err=err)
 
 
@@ -122,17 +133,38 @@ def fused_stationary_spec(stacked_model, X):
 
     Supported atoms: stationary kernels with a (B,) lengthscale (SE,
     Matern12/32/52, RationalQuadratic) on any active_dims slice, and ARD
-    ones with (B, D) lengthscales, D ≤ 8. Combinations: one atom, or a
+    ones with (B, D) lengthscales, D ≤ 8; Periodic(SquaredExponential) on
+    one column (the shared matrix is the squared distance, the ls slot
+    carries the period, the als slot the base lengthscale); Linear (the
+    shared matrix is the raw Gram ⟨x, x'⟩). Combinations: one atom, or a
     full-dim Sum or Product of atoms."""
     from portfoliooptgp_tpu_torch.kernels import stationary as st_kernels
+    from portfoliooptgp_tpu_torch.kernels.linear import Linear
+    from portfoliooptgp_tpu_torch.kernels.periodic import Periodic
 
     one = torch.ones((), dtype=X.dtype, device=X.device)
 
     def atom(t):
         fam = st_kernels.FUSED_FAMILY_OF.get(type(t))
+        Xs = t.slice_x(X)
+        if (isinstance(t, Periodic)
+                and isinstance(t.base, st_kernels.SquaredExponential)
+                and Xs.shape[1] == 1
+                and t.base.raw_lengthscales.ndim == 1
+                and t.raw_period.ndim == 1):
+            # the exact pairwise form, not the expanded xx+yy-2xy: the kernel
+            # recovers |x-x'| as √d2 inside sin(π√u), and the expansion's f32
+            # cancellation (~|x|²ε) turns into O(1) gradient error through
+            # the oscillating φ' at day-index inputs
+            diff = Xs[:, 0][:, None] - Xs[:, 0][None, :]
+            return ("periodic_se", [diff * diff], t.base.variance, [t.period],
+                    t.base.lengthscales)
+        if isinstance(t, Linear):
+            v = t.variance
+            on = torch.ones_like(v)
+            return "linear", [Xs @ Xs.T], v, [on], on
         if fam is None:
             return None
-        Xs = t.slice_x(X)
         v = t.variance
         al = t.alpha if fam == "rq" else torch.ones_like(v)
         if t.raw_lengthscales.ndim == 1:
@@ -176,9 +208,8 @@ _dispatch_logger = logging.getLogger("portfoliooptgp_tpu_torch.dispatch")
 DISPATCH_EVENTS: list = []
 
 # Routing windows of the tiers whose kernels are still to be ported
-# (portfoliooptgp_tpu/ops/pallas/nll.py:188, blocked_nll.py:58,379-389).
+# (portfoliooptgp_tpu/ops/pallas/nll.py:188, blocked_nll.py:379-389).
 MAX_PALLAS_N = 256
-BLOCKED_PREFERRED_N = 1024
 HINV_MAX_N = 4096
 HINV_MAX_ELEMS = 600_000_000
 
@@ -187,19 +218,15 @@ def pallas_nll_supported(n: int) -> bool:
     return n + ((-n) % 128) <= MAX_PALLAS_N
 
 
-def blocked_nll_preferred(n: int) -> bool:
-    return n + ((-n) % 128) <= BLOCKED_PREFERRED_N
-
-
 def hinv_nll_preferred(n: int, b: int = 1) -> bool:
     np_ = n + ((-n) % 128)
-    return BLOCKED_PREFERRED_N < np_ <= HINV_MAX_N and b * np_ * np_ <= HINV_MAX_ELEMS
+    return (blocked_mod.BLOCKED_PREFERRED_N < np_ <= HINV_MAX_N
+            and b * np_ * np_ <= HINV_MAX_ELEMS)
 
 
 #: Unported tiers → the ROADMAP.md queue-2 item that ports their kernel.
 UNPORTED_TIERS = {
     "pallas_dense": "queue 2, items 1-2 (nll._nll_kernel / _nll_inv_kernel)",
-    "blocked": "queue 2, item 4 (blocked_nll._panel_kernel)",
     "blocked_hinv": "queue 2, item 3 (nll._trinv_kernel)",
 }
 
@@ -233,7 +260,7 @@ def nll_tier(stacked_model, X, Y, fast: bool = True) -> str:
         and params_f32
         and Y.shape[1] == 1
         and (st_mod.fused_nll_supported(n)
-             or blocked_nll_preferred(n)
+             or blocked_mod.blocked_nll_preferred(n)
              or hinv_nll_preferred(n, b))
     ):
         return "xla"
@@ -245,7 +272,7 @@ def nll_tier(stacked_model, X, Y, fast: bool = True) -> str:
         return f"fused_general_{spec.combine}"
     if pallas_nll_supported(n):
         return "pallas_dense"
-    if blocked_nll_preferred(n):
+    if blocked_mod.blocked_nll_preferred(n):
         return "blocked"
     return "blocked_hinv"
 
@@ -256,8 +283,8 @@ def batched_neg_log_marginal_likelihood(stacked_model, X, Y, fast: bool = True,
     """(B,) NLLs of a stacked batch of models sharing (X, Y), routed by
     kernel structure and N like the JAX router. Model, X and Y are moved
     to (device, dtype) first. 'xla' is the plain batched path (the JAX
-    package's vmapped XLA path); the fused tiers run the CUDA kernel on a
-    GPU; the unported tiers raise NotImplementedError."""
+    package's vmapped XLA path); the fused and blocked tiers run their
+    CUDA kernels on a GPU; the unported tiers raise NotImplementedError."""
     from portfoliooptgp_tpu_torch.ops import stationary_nll as st_mod
 
     dev = resolve_device(device)
@@ -274,7 +301,9 @@ def batched_neg_log_marginal_likelihood(stacked_model, X, Y, fast: bool = True,
         return neg_log_marginal_likelihood(stacked_model, X, Y)
 
     noise = stacked_model.likelihood.variance
-    err = (Y[:, 0] - stacked_model.mean_function(X)[:, 0]).expand(b, n)
+    err = _err(stacked_model, X, Y)[:, :, 0]
+    if tier == "blocked":
+        return blocked_mod.batched_nll_blocked(stacked_model.kernel.K(X), err, noise)
     spec = fused_stationary_spec(stacked_model, X)
     if tier == "fused_stationary":
         return st_mod.batched_nll_stationary(

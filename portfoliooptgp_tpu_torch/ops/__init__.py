@@ -1,1 +1,1 @@
-"""Linear algebra and the fused NLL kernel wrapper."""
+"""Linear algebra and the wrappers of the CUDA NLL kernels."""

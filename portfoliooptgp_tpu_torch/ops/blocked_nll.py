@@ -1,0 +1,173 @@
+"""Batched GPR NLL by a blocked Cholesky with a CUDA panel kernel.
+
+Port of the `blocked` tier of portfoliooptgp_tpu/ops/pallas/blocked_nll.py
+(`_factor_panel`, `blocked_cholesky`, `_blocked_factor_solve`,
+`batched_nll_blocked` and its VJP). The right-looking blocked factor walks
+128-column panels of Ks = K + σ²I:
+
+- the panel factor (L11 = chol(A11), L21 = A21 L11⁻ᵀ and Σ log diag L11)
+  is the hand-written kernel `csrc/blocked_panel.cu` on CUDA tensors and
+  `factor_panel_plain` on CPU tensors; a CUDA tensor never takes the plain
+  version;
+- the trailing update `work − L21 L21ᵀ` between panels, the forward solve
+  a = L⁻¹y and the backward's W = L⁻¹ are torch.matmul and
+  torch.linalg.solve_triangular in full fp32 (TF32 is off), as the JAX
+  package leaves them to XLA at precision="highest".
+
+Unlike the JAX package, nothing is padded: N needs not be a multiple of
+128 (the last panel is N mod 128 columns wide) and B needs not be a
+multiple of 8. The NLL, its 2π constant, the log-determinant and every
+gradient are those of the real N. An indefinite pivot gives NaN.
+
+The `blocked_hinv` half of the JAX module (1024 < padded N ≤ 4096) needs
+`nll._trinv_kernel` and waits for it (ROADMAP.md queue 2, item 3).
+
+`LAUNCHES["blocked_panel"]` counts kernel launches, one per panel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from portfoliooptgp_tpu_torch.ops import linalg
+
+LOG2PI = 1.8378770664093453
+
+PW = 128  # panel width, as the TPU kernel's
+
+# Upper end of the tier's routing window, kept equal to the JAX package's
+# (blocked_nll.BLOCKED_PREFERRED_N) so that the router names the same tiers.
+BLOCKED_PREFERRED_N = 1024
+
+LAUNCHES = {"blocked_panel": 0}
+
+
+def blocked_nll_preferred(n: int) -> bool:
+    return n + ((-n) % 128) <= BLOCKED_PREFERRED_N
+
+
+# -- the panel factor: plain version and kernel wrapper ---------------------
+
+def factor_panel_plain(panel):
+    """panel (B, nt, pw), pw = min(128, nt), the diagonal block on top →
+    (L panel (B, nt, pw) with zeros above the diagonal, Σ log diag L11 (B,))."""
+    pw = panel.shape[2]
+    L11 = linalg.cholesky(panel[:, :pw, :])
+    L21 = torch.linalg.solve_triangular(L11.transpose(-1, -2), panel[:, pw:, :],
+                                        upper=True, left=False)
+    logdet = torch.sum(torch.log(torch.diagonal(L11, dim1=-2, dim2=-1)), dim=-1)
+    return torch.cat([L11, L21], dim=1), logdet
+
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from portfoliooptgp_tpu_torch.ops import cuda_build
+
+        lib = cuda_build.load("blocked_panel")
+        lib.blocked_panel_launch.restype = ctypes.c_int
+        lib.blocked_panel_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        _LIB = lib
+    return _LIB
+
+
+def factor_panel_cuda(panel):
+    """Launch the CUDA panel kernel; same contract as the plain version.
+    The panel may be a strided view (unit column stride) of the trailing
+    matrix: the kernel reads it in place."""
+    if panel.device.type != "cuda" or panel.dtype != torch.float32:
+        raise TypeError("the panel kernel takes a float32 CUDA tensor, got "
+                        f"{panel.dtype} on {panel.device}")
+    if panel.ndim != 3 or panel.shape[2] != min(PW, panel.shape[1]):
+        raise ValueError(f"panel shape {tuple(panel.shape)} is not (B, nt, min(128, nt))")
+    if panel.stride(2) != 1:
+        panel = panel.contiguous()
+    B, nt, pw = panel.shape
+    out = torch.empty((B, nt, pw), dtype=torch.float32, device=panel.device)
+    logdet = torch.empty((B,), dtype=torch.float32, device=panel.device)
+    with torch.cuda.device(panel.device):
+        stream = torch.cuda.current_stream(panel.device).cuda_stream
+        rc = _lib().blocked_panel_launch(
+            ctypes.c_void_p(panel.data_ptr()), panel.stride(0), panel.stride(1),
+            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(logdet.data_ptr()),
+            B, nt, pw, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"blocked_panel kernel launch failed: CUDA error {rc}")
+    LAUNCHES["blocked_panel"] += 1
+    return out, logdet
+
+
+def factor_panel(panel):
+    """The kernel's wrapper: CUDA tensors launch the kernel, CPU tensors
+    take the plain version."""
+    if panel.device.type == "cuda":
+        return factor_panel_cuda(panel)
+    if panel.device.type == "cpu":
+        return factor_panel_plain(panel)
+    raise ValueError(f"unsupported device {panel.device}")
+
+
+# -- the blocked factor, the NLL and its VJP --------------------------------
+
+def blocked_cholesky(Ks):
+    """Lower Cholesky factor of (B, N, N) SPD matrices by 128-column panels
+    (the panel factor, then a full-fp32 trailing matmul) and Σ log diag L."""
+    B, N, _ = Ks.shape
+    L = torch.zeros_like(Ks)
+    logdet = torch.zeros((B,), dtype=Ks.dtype, device=Ks.device)
+    work = Ks  # trailing submatrix, shrinks by PW rows and columns per panel
+    for p0 in range(0, N, PW):
+        nt = N - p0
+        pw = min(PW, nt)
+        Lp, ld = factor_panel(work[:, :, :pw])
+        logdet = logdet + ld
+        L[:, p0:, p0:p0 + pw] = Lp
+        if nt > pw:
+            L21 = Lp[:, pw:, :]
+            work = work[:, pw:, pw:] - L21 @ L21.transpose(-1, -2)
+    return L, logdet
+
+
+def _factor_solve(K, y, noise):
+    N = K.shape[1]
+    L, logdet = blocked_cholesky(linalg.add_diag(K, noise))
+    a = linalg.solve_lower(L, y[..., None])[..., 0]
+    nll = 0.5 * torch.sum(a * a, dim=-1) + logdet + 0.5 * N * LOG2PI
+    return nll, L, a
+
+
+class _BlockedNLL(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, K, y, noise):
+        nll, L, a = _factor_solve(K, y, noise)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(L, a)
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        # _bwd: Ks⁻¹ = WᵀW with W = L⁻¹ from a triangular solve against I
+        L, a = ctx.saved_tensors
+        eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device).expand_as(L)
+        W = linalg.solve_lower(L, eye)
+        Wt = W.transpose(-1, -2)
+        Kinv = Wt @ W
+        alpha = (Wt @ a[..., None])[..., 0]
+        dK = 0.5 * (Kinv - alpha[:, :, None] * alpha[:, None, :])
+        dnoise = 0.5 * (torch.diagonal(Kinv, dim1=-2, dim2=-1).sum(-1)
+                        - torch.sum(alpha * alpha, dim=-1))
+        return g[:, None, None] * dK, g[:, None] * alpha, g * dnoise
+
+
+def batched_nll_blocked(K, y, noise):
+    """Differentiable (B,) NLLs of K (B, N, N), y (B, N), noise (B,):
+    ½‖L⁻¹y‖² + Σ log diag L + ½ N log 2π with L L ᵀ = K + σ²I. The
+    contract of the JAX package's `batched_nll_blocked`."""
+    return _BlockedNLL.apply(K, y, noise)

@@ -14,7 +14,14 @@ walk-forward model `GPR(Product(Matern12, Matern12), Gaussian, Zero)`:
      likelihood.raw_variance]
 
 Every leaf carries a leading batch axis (B models); a lengthscale leaf is
-(B,) when isotropic and (B, D) when ARD.
+(B,) when isotropic and (B, D) when ARD. The leaf orders of `Periodic`,
+`Linear`/`Polynomial` and the mean functions are in the docstrings of
+kernels/periodic.py, kernels/linear.py and kernels/means.py; menu entry 6,
+`GPR(Exponential + Periodic(SE) + Linear, Gaussian, Zero)`, gives
+
+    [exp.raw_variance, exp.raw_lengthscales,
+     se.raw_variance, se.raw_lengthscales, periodic.raw_period,
+     linear.raw_variance, likelihood.raw_variance]
 """
 
 from __future__ import annotations

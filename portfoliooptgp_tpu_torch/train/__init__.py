@@ -1,1 +1,2 @@
-"""Optimizers: L-BFGS with a zoom line search, batched L-BFGS."""
+"""Optimizers (L-BFGS with a zoom line search, batched L-BFGS) and the
+menu trainer."""

@@ -11,8 +11,11 @@ and gradients stay on their device; the line search's scalar bookkeeping
 runs on the host in float64. `torch.optim.LBFGS` stops by other rules, so
 it is not used.
 
-`fit` takes one parameter tensor (the portfolio solver's use); frozen
-coordinates are given as a boolean tensor of the same shape.
+`fit` takes one parameter tensor (the portfolio solver's, the blend
+fit's) or a model tree (the trainers'): a tree's leaves are flattened into
+one vector in `tree_leaves` order, and a frozen tree (`freeze_leaves`)
+becomes a mask over it. Frozen coordinates are masked out of every
+gradient, so the L-BFGS direction is exactly zero on them.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from portfoliooptgp_tpu_torch.params import tree_leaves, tree_map, tree_replace
 
 
 class FitResult(NamedTuple):
-    params: torch.Tensor
+    params: object  # a tensor, or a model tree, like the input
     loss: float
     grad_norm: float
     iters: int
@@ -214,9 +217,31 @@ def zoom_linesearch(loss_fn, x, d, value, grad):
 
 # -- optax.scale_by_lbfgs, ported ------------------------------------------
 
+def _flatten(params, frozen):
+    """(flat vector, unflatten(z) → params, flat frozen mask or None)."""
+    if isinstance(params, torch.Tensor):
+        shape = params.shape
+        mask = (None if frozen is None
+                else torch.as_tensor(frozen, device=params.device).reshape(-1))
+        return params.detach().reshape(-1).clone(), lambda z: z.reshape(shape), mask
+    leaves = tree_leaves(params)
+    sizes = [leaf.numel() for leaf in leaves]
+    flat = torch.cat([leaf.detach().reshape(-1) for leaf in leaves])
+
+    def unflatten(z):
+        parts = torch.split(z, sizes)
+        return tree_replace(params, [p.reshape(leaf.shape) for p, leaf in zip(parts, leaves)])
+
+    mask = None
+    if frozen is not None:
+        mask = torch.cat([torch.full((n,), bool(f), device=flat.device)
+                          for n, f in zip(sizes, tree_leaves(frozen))])
+    return flat, unflatten, mask
+
+
 def fit(
     loss_fn: Callable,
-    params: torch.Tensor,
+    params,
     *,
     maxiter: int = 100,
     gtol: float = 1e-8,
@@ -224,19 +249,17 @@ def fit(
     memory_size: int = 10,
     frozen=None,
 ) -> FitResult:
-    """Minimize scalar `loss_fn(params)` with L-BFGS + zoom line search."""
-    x = params.detach().clone()
-    shape = x.shape
-    mask = None if frozen is None else torch.as_tensor(frozen, device=x.device).reshape(-1)
+    """Minimize scalar `loss_fn(params)` with L-BFGS + zoom line search;
+    `params` a tensor or a model tree, `frozen` a boolean tensor of its
+    shape or a tree of booleans."""
+    x, unflatten, mask = _flatten(params, frozen)
 
     def masked(g):
         g = g.reshape(-1)
         return torch.where(mask, torch.zeros_like(g), g) if mask is not None else g
 
     def flat_loss(z):
-        return loss_fn(z.reshape(shape))
-
-    x = x.reshape(-1)
+        return loss_fn(unflatten(z))
     n = x.numel()
     opts = dict(dtype=x.dtype, device=x.device)
     value, grad = _value_and_grad(flat_loss, x)
@@ -296,7 +319,7 @@ def fit(
 
     gn = gnorm(grad)
     return FitResult(
-        params=x.reshape(shape), loss=value, grad_norm=gn, iters=it,
+        params=unflatten(x), loss=value, grad_norm=gn, iters=it,
         converged=bool(gn <= gtol or abs(prev_value - value)
                        <= ftol * max(1.0, abs(value))))
 
@@ -307,6 +330,11 @@ def stack_pytrees(trees):
     """Concatenate identically structured models along the batch axis."""
     leaves = [tree_leaves(t) for t in trees]
     return tree_replace(trees[0], [torch.cat(ls, dim=0) for ls in zip(*leaves)])
+
+
+def index_pytree(tree, i):
+    """Model `i` of a stacked tree, keeping a batch axis of 1."""
+    return tree_map(lambda x: x[i:i + 1], tree)
 
 
 def freeze_leaves(template, **replacements):

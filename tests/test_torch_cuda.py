@@ -1,9 +1,11 @@
-"""The stationary NLL CUDA kernel against its plain PyTorch version.
+"""The CUDA kernels (stationary NLL, blocked panel factor) against their
+plain PyTorch versions.
 
 Needs an NVIDIA GPU and nvcc (marker `cuda`); skipped elsewhere. Float32
 on the card with the tolerances of the matching checks in
 tools/smoke_tpu.py: values rtol 3e-3, gradients normalized atol 2e-2.
-Run on the card with `python -m pytest tests/test_torch_cuda.py -m cuda`.
+Run on the card with
+`python -m pytest --noconftest tests/test_torch_cuda.py -m cuda`.
 """
 
 import numpy as np
@@ -82,3 +84,79 @@ def test_torch_cuda_kernel_indefinite_gives_nan(cuda):
     with torch.no_grad():
         nll = st.batched_nll_stationary(d2s[0], err, vs[0], ls[0], -noise - 3.0, "se")
     assert torch.all(torch.isnan(nll))
+
+
+# -- the blocked tier's panel kernel (csrc/blocked_panel.cu) ----------------
+
+def _spd(cuda, B, N, seed):
+    rng = np.random.default_rng(seed)
+    A = torch.tensor(rng.normal(size=(B, N, N)), dtype=torch.float64, device=cuda)
+    K = A @ A.mT / N + 0.5 * torch.eye(N, dtype=torch.float64, device=cuda)
+    return K.float()
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("nt", [875, 747, 619, 491, 363, 235, 107])
+def test_torch_cuda_panel_kernel_matches_plain(cuda, B, nt):
+    """Every panel height of the N = 875 path, as a strided view of the
+    trailing matrix: L panel within 3e-3 of max |L|, Σ log diag rtol 3e-3."""
+    from portfoliooptgp_tpu_torch.ops import blocked_nll as bn
+
+    Ks = _spd(cuda, B, nt, nt)
+    panel = Ks[:, :, :min(128, nt)]
+    before = bn.LAUNCHES["blocked_panel"]
+    Lk, ldk = bn.factor_panel(panel)
+    Lp, ldp = bn.factor_panel_plain(panel)
+    torch.cuda.synchronize()
+    assert bn.LAUNCHES["blocked_panel"] == before + 1
+    scale = float(Lp.abs().max())
+    torch.testing.assert_close(Lk / scale, Lp / scale, rtol=0, atol=3e-3)
+    torch.testing.assert_close(ldk, ldp, rtol=3e-3, atol=0)
+    assert torch.all(torch.triu(Lk[:, :min(128, nt)], 1) == 0)
+
+
+@pytest.mark.parametrize("B,N", [(1, 875), (8, 875), (8, 896)])
+def test_torch_cuda_blocked_nll_matches_plain(cuda, B, N):
+    """Values (rtol 3e-3) and gradients of K, y and noise (normalized atol
+    2e-2) of the blocked NLL, on the card (the panel kernel) against the
+    same call on CPU copies of the float32 inputs (the plain panel factor)."""
+    from portfoliooptgp_tpu_torch.ops import blocked_nll as bn
+
+    rng = np.random.default_rng(N + B)
+    K = _spd(cuda, B, N, B)
+    y = torch.tensor(rng.normal(size=(B, N)), dtype=torch.float32, device=cuda)
+    noise = torch.tensor(rng.uniform(0.1, 0.5, B), dtype=torch.float32, device=cuda)
+    outs = []
+    for dev in (cuda, "cpu"):
+        leaves = [x.to(dev).requires_grad_(True) for x in (K, y, noise)]
+        nll = bn.batched_nll_blocked(*leaves)
+        grads = torch.autograd.grad(nll.sum(), leaves)
+        outs.append((nll.detach().cpu(), [g.cpu() for g in grads]))
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=3e-3, atol=0)
+    for g, w in zip(outs[0][1], outs[1][1]):
+        scale = max(float(w.abs().max()), 1.0)
+        torch.testing.assert_close(g / scale, w / scale, rtol=0, atol=2e-2)
+
+
+def test_torch_cuda_panel_kernel_indefinite_gives_nan(cuda):
+    from portfoliooptgp_tpu_torch.ops import blocked_nll as bn
+
+    Ks = _spd(cuda, 2, 300, 9) - 3.0 * torch.eye(300, device=cuda)
+    with torch.no_grad():
+        _, ld = bn.factor_panel(Ks[:, :, :128])
+        nll = bn.batched_nll_blocked(Ks, torch.ones(2, 300, device=cuda),
+                                     torch.zeros(2, device=cuda))
+    assert torch.all(torch.isnan(ld)) and torch.all(torch.isnan(nll))
+
+
+def test_torch_cuda_panel_kernel_launch_error_raises(cuda):
+    """A grid the kernel refuses (B above 65,535) raises; a CPU-only
+    dtype or a wrong width never reaches the kernel."""
+    from portfoliooptgp_tpu_torch.ops import blocked_nll as bn
+
+    with pytest.raises(RuntimeError, match="launch failed"):
+        bn.factor_panel_cuda(torch.ones((70_000, 1, 1), device=cuda))
+    with pytest.raises(TypeError):
+        bn.factor_panel_cuda(torch.ones((1, 4, 4), dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError):
+        bn.factor_panel_cuda(torch.ones((1, 300, 100), device=cuda))

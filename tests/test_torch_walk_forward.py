@@ -160,3 +160,23 @@ def test_torch_run_arima_and_sequential_step_4(market):
     np.testing.assert_allclose(got["forecast"], want["forecast"], rtol=1e-12)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tp.run_step_4(batched=False)
+
+
+def test_torch_walk_forward_blocked_branch_raises():
+    """Float32 with 512 < padded N ≤ 1024 and a kernel the fused tier
+    cannot take: the walk-forward's blocked branch raises, naming its
+    ROADMAP.md item, before any training."""
+    n = 560
+    rng = np.random.default_rng(6)
+    t = np.linspace(0, 20, n)
+    X = np.column_stack([np.sin(t) + 0.1 * rng.normal(size=n), t])
+    Y = (np.sin(t) + 0.08 * rng.normal(size=n))[:, None]
+    o = dict(device="cpu", dtype=torch.float32)
+
+    def make_model(v):
+        kern = (tk.SquaredExponential.create(**o) + tk.Matern12.create(**o)) * tk.Matern32.create(**o)
+        return tgpr.GPR.create(kern, v)
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
+        twf.batched_walk_forward(X, Y, n - 2, make_model, maxiter=3,
+                                 device="cpu", dtype=torch.float32)
