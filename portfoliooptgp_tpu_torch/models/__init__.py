@@ -1,1 +1,2 @@
-"""Models of the main path: exact GPR, its Gaussian likelihood, ARIMA."""
+"""Models of the ported paths: exact GPR, its Gaussian likelihood, ARIMA and
+the ICM multi-output GP."""

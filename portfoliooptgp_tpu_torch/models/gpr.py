@@ -11,8 +11,9 @@ JAX package's `jax.vmap` over stacked restarts is that axis.
 `batched_neg_log_marginal_likelihood` routes by kernel structure and N
 exactly as the JAX router does (`nll_tier` names the same tiers). The
 fused tiers launch the CUDA kernel of ops/stationary_nll.py, the
-'blocked' tier the panel kernel of ops/blocked_nll.py; the tiers whose
-kernels are not ported yet ('pallas_dense', 'blocked_hinv') raise
+'blocked' tier the panel kernel of ops/blocked_nll.py, the
+'blocked_hinv' tier the triangular-inverse kernel of ops/nll.py; the tier
+whose kernels are not ported yet ('pallas_dense') raises
 NotImplementedError rather than run a plain path.
 
 A mean function returns (N, 1) (`Zero`) or (B, N, 1); `_err` brings the
@@ -34,6 +35,7 @@ from portfoliooptgp_tpu_torch.kernels.means import MeanFunction, Zero
 from portfoliooptgp_tpu_torch.models.likelihoods import Gaussian
 from portfoliooptgp_tpu_torch.ops import blocked_nll as blocked_mod
 from portfoliooptgp_tpu_torch.ops import linalg
+from portfoliooptgp_tpu_torch.ops import nll as nll_mod
 from portfoliooptgp_tpu_torch.params import batch_size, tree_leaves, tree_to
 
 
@@ -207,27 +209,9 @@ _dispatch_logger = logging.getLogger("portfoliooptgp_tpu_torch.dispatch")
 #: Record of NLL dispatch decisions (dicts with tier/N/B), one per call.
 DISPATCH_EVENTS: list = []
 
-# Routing windows of the tiers whose kernels are still to be ported
-# (portfoliooptgp_tpu/ops/pallas/nll.py:188, blocked_nll.py:379-389).
-MAX_PALLAS_N = 256
-HINV_MAX_N = 4096
-HINV_MAX_ELEMS = 600_000_000
-
-
-def pallas_nll_supported(n: int) -> bool:
-    return n + ((-n) % 128) <= MAX_PALLAS_N
-
-
-def hinv_nll_preferred(n: int, b: int = 1) -> bool:
-    np_ = n + ((-n) % 128)
-    return (blocked_mod.BLOCKED_PREFERRED_N < np_ <= HINV_MAX_N
-            and b * np_ * np_ <= HINV_MAX_ELEMS)
-
-
 #: Unported tiers → the ROADMAP.md queue-2 item that ports their kernel.
 UNPORTED_TIERS = {
     "pallas_dense": "queue 2, items 1-2 (nll._nll_kernel / _nll_inv_kernel)",
-    "blocked_hinv": "queue 2, item 3 (nll._trinv_kernel)",
 }
 
 
@@ -261,7 +245,7 @@ def nll_tier(stacked_model, X, Y, fast: bool = True) -> str:
         and Y.shape[1] == 1
         and (st_mod.fused_nll_supported(n)
              or blocked_mod.blocked_nll_preferred(n)
-             or hinv_nll_preferred(n, b))
+             or blocked_mod.hinv_nll_preferred(n, b))
     ):
         return "xla"
     spec = fused_stationary_spec(stacked_model, X)
@@ -270,7 +254,7 @@ def nll_tier(stacked_model, X, Y, fast: bool = True) -> str:
                 and spec.dims == (1,)):
             return "fused_stationary"
         return f"fused_general_{spec.combine}"
-    if pallas_nll_supported(n):
+    if nll_mod.pallas_nll_supported(n):
         return "pallas_dense"
     if blocked_mod.blocked_nll_preferred(n):
         return "blocked"
@@ -284,7 +268,7 @@ def batched_neg_log_marginal_likelihood(stacked_model, X, Y, fast: bool = True,
     kernel structure and N like the JAX router. Model, X and Y are moved
     to (device, dtype) first. 'xla' is the plain batched path (the JAX
     package's vmapped XLA path); the fused and blocked tiers run their
-    CUDA kernels on a GPU; the unported tiers raise NotImplementedError."""
+    CUDA kernels on a GPU; the unported tier raises NotImplementedError."""
     from portfoliooptgp_tpu_torch.ops import stationary_nll as st_mod
 
     dev = resolve_device(device)
@@ -304,6 +288,8 @@ def batched_neg_log_marginal_likelihood(stacked_model, X, Y, fast: bool = True,
     err = _err(stacked_model, X, Y)[:, :, 0]
     if tier == "blocked":
         return blocked_mod.batched_nll_blocked(stacked_model.kernel.K(X), err, noise)
+    if tier == "blocked_hinv":
+        return blocked_mod.batched_nll_hinv(stacked_model.kernel.K(X), err, noise)
     spec = fused_stationary_spec(stacked_model, X)
     if tier == "fused_stationary":
         return st_mod.batched_nll_stationary(

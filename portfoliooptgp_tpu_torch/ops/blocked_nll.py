@@ -19,10 +19,27 @@ Unlike the JAX package, nothing is padded: N needs not be a multiple of
 multiple of 8. The NLL, its 2π constant, the log-determinant and every
 gradient are those of the real N. An indefinite pivot gives NaN.
 
-The `blocked_hinv` half of the JAX module (1024 < padded N ≤ 4096) needs
-`nll._trinv_kernel` and waits for it (ROADMAP.md queue 2, item 3).
+The `blocked_hinv` tier (1024 < padded N ≤ 4096, `hinv_nll_preferred`)
+is the JAX module's second half (`_hinv_factor`, `batched_nll_hinv`,
+`blocked_triangular_inverse`, `triangular_inverse_uneven`):
 
-`LAUNCHES["blocked_panel"]` counts kernel launches, one per panel.
+- L = chol(Ks) is torch.linalg.cholesky (NaN on failure, ops/linalg), as
+  the JAX package leaves it to XLA;
+- W = L⁻¹ is hierarchical: the 128×128 diagonal blocks of all B factors
+  are inverted in one launch of the CUDA kernel of ops/nll.py
+  (`triangular_inverse`, the TPU kernel `_trinv_kernel`), then joined by
+  [[A, 0], [C, D]]⁻¹ = [[A⁻¹, 0], [−D⁻¹CA⁻¹, D⁻¹]] in batched
+  torch.matmul at full fp32 (the JAX package runs its power-of-two levels
+  at Precision.HIGH, 3-pass bf16, and its uneven join at HIGHEST);
+- a = W y, and the backward is the closed form Ks⁻¹ = WᵀW, α = Wᵀa.
+
+The tier pads N to a multiple of 128 with an identity tail (the inverse
+works on 128-blocks) but not the batch; the NLL, its 2π constant, the
+log-determinant and every gradient are those of the real N.
+
+`LAUNCHES["blocked_panel"]` counts panel-kernel launches, one per panel;
+the hinv tier's launches are counted in ops/nll.LAUNCHES, one per NLL
+evaluation.
 """
 
 from __future__ import annotations
@@ -32,6 +49,7 @@ import ctypes
 import torch
 
 from portfoliooptgp_tpu_torch.ops import linalg
+from portfoliooptgp_tpu_torch.ops import nll as nll_mod
 
 LOG2PI = 1.8378770664093453
 
@@ -143,6 +161,19 @@ def _factor_solve(K, y, noise):
     return nll, L, a
 
 
+def _grads_from_inverse(W, a, g):
+    """The closed-form VJP of both tiers from W = L⁻¹ and a = W y:
+    ∂/∂K = ½(Ks⁻¹ − ααᵀ), ∂/∂y = α, ∂/∂σ² = ½ tr Ks⁻¹ − ½‖α‖², with
+    Ks⁻¹ = WᵀW and α = Wᵀa."""
+    Wt = W.transpose(-1, -2)
+    Kinv = Wt @ W
+    alpha = (Wt @ a[..., None])[..., 0]
+    dK = 0.5 * (Kinv - alpha[:, :, None] * alpha[:, None, :])
+    dnoise = 0.5 * (torch.diagonal(Kinv, dim1=-2, dim2=-1).sum(-1)
+                    - torch.sum(alpha * alpha, dim=-1))
+    return g[:, None, None] * dK, g[:, None] * alpha, g * dnoise
+
+
 class _BlockedNLL(torch.autograd.Function):
     @staticmethod
     def forward(ctx, K, y, noise):
@@ -153,17 +184,10 @@ class _BlockedNLL(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # _bwd: Ks⁻¹ = WᵀW with W = L⁻¹ from a triangular solve against I
+        # _bwd: W = L⁻¹ from a triangular solve against I
         L, a = ctx.saved_tensors
         eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device).expand_as(L)
-        W = linalg.solve_lower(L, eye)
-        Wt = W.transpose(-1, -2)
-        Kinv = Wt @ W
-        alpha = (Wt @ a[..., None])[..., 0]
-        dK = 0.5 * (Kinv - alpha[:, :, None] * alpha[:, None, :])
-        dnoise = 0.5 * (torch.diagonal(Kinv, dim1=-2, dim2=-1).sum(-1)
-                        - torch.sum(alpha * alpha, dim=-1))
-        return g[:, None, None] * dK, g[:, None] * alpha, g * dnoise
+        return _grads_from_inverse(linalg.solve_lower(L, eye), a, g)
 
 
 def batched_nll_blocked(K, y, noise):
@@ -171,3 +195,115 @@ def batched_nll_blocked(K, y, noise):
     ½‖L⁻¹y‖² + Σ log diag L + ½ N log 2π with L L ᵀ = K + σ²I. The
     contract of the JAX package's `batched_nll_blocked`."""
     return _BlockedNLL.apply(K, y, noise)
+
+
+# -- the blocked_hinv tier ----------------------------------------------------
+
+# Routing window of the tier, kept equal to the JAX package's
+# (blocked_nll.HINV_MAX_N, HINV_MAX_ELEMS) so that the router names the same
+# tiers: padded N up to 4096 and B·Np² up to 6·10⁸ elements.
+HINV_MAX_N = 4096
+HINV_MAX_ELEMS = 600_000_000
+
+
+def hinv_nll_preferred(n: int, b: int = 1) -> bool:
+    np_ = n + ((-n) % 128)
+    return BLOCKED_PREFERRED_N < np_ <= HINV_MAX_N and b * np_ * np_ <= HINV_MAX_ELEMS
+
+
+def _diag_blocks_below(L, w, nb2):
+    """(B, nb2, w, w): block (2k+1, 2k) of L in w×w blocks, for each pair k."""
+    return torch.stack([L[:, (2 * k + 1) * w:(2 * k + 2) * w, 2 * k * w:(2 * k + 1) * w]
+                        for k in range(nb2)], dim=1)
+
+
+def _join_levels(L, cur):
+    """L⁻¹ (B, Np, Np) from the inverses `cur` (B, P, 128, 128) of its P
+    diagonal blocks, P a power of two: log₂P levels, each joining every
+    pair of neighbouring blocks at once."""
+    B = L.shape[0]
+    w = PW
+    while cur.shape[1] > 1:
+        nb2 = cur.shape[1] // 2
+        WA, WC = cur[:, 0::2], cur[:, 1::2]
+        W21 = -(WC @ (_diag_blocks_below(L, w, nb2) @ WA))
+        zero = torch.zeros((B, nb2, w, w), dtype=L.dtype, device=L.device)
+        cur = torch.cat([torch.cat([WA, zero], dim=-1), torch.cat([W21, WC], dim=-1)],
+                        dim=-2)
+        w *= 2
+    return cur[:, 0]
+
+
+def _join_uneven(L, cur):
+    """L⁻¹ for any panel count P: the largest power-of-two prefix of panels
+    by `_join_levels`, the rest recursively, joined by one more level."""
+    B, Np, _ = L.shape
+    P = cur.shape[1]
+    if P & (P - 1) == 0:
+        return _join_levels(L, cur)
+    P1 = 1 << (P.bit_length() - 1)
+    n1 = P1 * PW
+    WA = _join_levels(L[:, :n1, :n1], cur[:, :P1])
+    WD = _join_uneven(L[:, n1:, n1:], cur[:, P1:])
+    W21 = -(WD @ (L[:, n1:, :n1] @ WA))
+    top = torch.cat([WA, torch.zeros((B, n1, Np - n1), dtype=L.dtype, device=L.device)],
+                    dim=2)
+    return torch.cat([top, torch.cat([W21, WD], dim=2)], dim=1)
+
+
+def blocked_triangular_inverse(L):
+    """W = L⁻¹ for (B, Np, Np) lower factors, Np a multiple of 128: the
+    diagonal blocks by `ops/nll.triangular_inverse` (one launch), then the
+    pairwise levels. As in the JAX package, a panel count that is not a
+    power of two is padded up to one with identity blocks."""
+    B, Np, _ = L.shape
+    P = Np // PW
+    P2 = 1 << (P - 1).bit_length()
+    if P2 != P:
+        pad = (P2 - P) * PW
+        L = torch.nn.functional.pad(L, (0, pad, 0, pad))
+        L.diagonal(dim1=-2, dim2=-1)[:, Np:] = 1.0
+    return _join_levels(L, nll_mod.triangular_inverse(L))[:, :Np, :Np]
+
+
+def triangular_inverse_uneven(L):
+    """W = L⁻¹ for (B, Np, Np) lower factors with Np any multiple of 128,
+    at its true size: every diagonal block of every factor inverted in one
+    launch, then the prefix split of the JAX package (11 panels run as
+    8 + (2 + 1))."""
+    return _join_uneven(L, nll_mod.triangular_inverse(L))
+
+
+def _hinv_factor(K, y, noise):
+    B, N, _ = K.shape
+    Ks = linalg.add_diag(K, noise)
+    pad = (-N) % PW
+    if pad:
+        Ks = torch.nn.functional.pad(Ks, (0, pad, 0, pad))
+        Ks.diagonal(dim1=-2, dim2=-1)[:, N:] = 1.0
+    L = linalg.cholesky(Ks)
+    W = triangular_inverse_uneven(L)[:, :N, :N]
+    a = (W @ y[..., None])[..., 0]
+    logdet = torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)[:, :N]), dim=-1)
+    return 0.5 * torch.sum(a * a, dim=-1) + logdet + 0.5 * N * LOG2PI, W, a
+
+
+class _HinvNLL(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, K, y, noise):
+        value, W, a = _hinv_factor(K, y, noise)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(W, a)
+        return value
+
+    @staticmethod
+    def backward(ctx, g):
+        W, a = ctx.saved_tensors
+        return _grads_from_inverse(W, a, g)
+
+
+def batched_nll_hinv(K, y, noise):
+    """Differentiable (B,) NLLs of K (B, N, N), y (B, N), noise (B,) for
+    the large-N window: the contract of the JAX package's
+    `batched_nll_hinv`."""
+    return _HinvNLL.apply(K, y, noise)

@@ -21,7 +21,8 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = {"stationary_nll": "stationary_nll.cu", "blocked_panel": "blocked_panel.cu"}
+SOURCES = {"stationary_nll": "stationary_nll.cu", "blocked_panel": "blocked_panel.cu",
+           "trinv": "trinv.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

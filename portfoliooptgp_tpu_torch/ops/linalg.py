@@ -1,7 +1,7 @@
 """Dense linear algebra for GP inference, batched over leading axes.
 
-Port of portfoliooptgp_tpu/ops/linalg.py (the main path's part; the
-jitter ladder, guarded VJPs and safe_eigh are listed in ROADMAP.md).
+Port of portfoliooptgp_tpu/ops/linalg.py (the main path's part, and
+`safe_eigh`; the jitter ladder and guarded VJPs are listed in ROADMAP.md).
 torch.linalg does the work here, as XLA did in the reference. A failed
 factorization gives NaN, as `jnp.linalg.cholesky` does, so callers see a
 non-finite loss instead of an exception.
@@ -53,3 +53,42 @@ def mahalanobis_from_chol(L, y):
     """yᵀ K⁻¹ y via one triangular solve: ‖L⁻¹y‖², per matrix."""
     a = solve_lower(L, y)
     return torch.sum(a * a, dim=(-2, -1))
+
+
+class _SafeEigh(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, A):
+        lam, E = torch.linalg.eigh(A)
+        ctx.save_for_backward(lam, E)
+        return lam, E
+
+    @staticmethod
+    def backward(ctx, lam_bar, E_bar):
+        lam, E = ctx.saved_tensors
+        if lam_bar is None:
+            lam_bar = torch.zeros_like(lam)
+        if E_bar is None:
+            E_bar = torch.zeros_like(E)
+        d = lam[..., None, :] - lam[..., :, None]  # d_ij = λ_j − λ_i
+        scale = torch.clamp_min(torch.amax(torch.abs(lam), dim=-1), 1.0)[..., None, None]
+        eps = 64.0 * torch.finfo(lam.dtype).eps * scale
+        big = torch.abs(d) > eps
+        F = torch.where(big, 1.0 / torch.where(big, d, torch.ones_like(d)),
+                        torch.zeros_like(d))
+        Et = E.transpose(-1, -2)
+        M = F * (Et @ E_bar)
+        Abar = E @ (torch.diag_embed(lam_bar) + 0.5 * (M + M.transpose(-1, -2))) @ Et
+        # the input is constrained symmetric: symmetrize the cotangent
+        return 0.5 * (Abar + Abar.transpose(-1, -2))
+
+
+def safe_eigh(A):
+    """(λ ascending, E) of symmetric A with a degeneracy-safe VJP.
+
+    The standard eigh pullback holds F_ij = 1/(λ_j − λ_i), NaN for tied
+    eigenvalues. For a function of A that does not depend on the basis
+    inside a degenerate eigenspace (NLLs, log-determinants, solves), those
+    terms cancel; this VJP zeroes F where |λ_j − λ_i| ≤ 64·eps·max(1,
+    max|λ|), the JAX package's threshold. The ICM model needs it: its
+    B = WWᵀ + diag(κ) has p − rank tied eigenvalues at the uniform-κ start."""
+    return _SafeEigh.apply(A)

@@ -1,0 +1,116 @@
+"""Config-5 workflow: an n-asset multi-output GP posterior → efficient frontier.
+
+Port of portfoliooptgp_tpu/pipelines/frontier_pipeline.py:
+
+1. load every asset's return series on the shared trading-day grid;
+2. fit one ICM multi-output GP by L-BFGS on
+   `icm.neg_log_marginal_likelihood_chol` (the P outputs as P shifted GPR
+   problems: the fused stationary kernel at padded N ≤ 512, the
+   `blocked_hinv` tier with the triangular-inverse kernel at
+   1024 < padded N ≤ 4096);
+3. the posterior (μ, Σ) of next-period returns → the long-only efficient
+   frontier and the tangency portfolio.
+
+Averaging over a NUTS hyperposterior (`use_nuts=True`) waits for the
+inference module (ROADMAP.md queue 1, item 14) and raises.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from portfoliooptgp_tpu_torch import kernels as km
+from portfoliooptgp_tpu_torch.device import DEFAULT_DEVICE, DEFAULT_DTYPE, as_tensor
+from portfoliooptgp_tpu_torch.models import icm
+from portfoliooptgp_tpu_torch.params import tree_to
+from portfoliooptgp_tpu_torch.portfolio.frontier import Frontier, efficient_frontier
+from portfoliooptgp_tpu_torch.train import lbfgs
+
+
+@dataclass
+class FrontierResult:
+    assets: list
+    mu: np.ndarray
+    Sigma: np.ndarray
+    frontier: Frontier
+    model: object
+    nuts_draws: Optional[int] = None
+    fit: Optional[lbfgs.FitResult] = None  # the ICM fit: final NLL, iterations
+
+
+def frontier_inputs(assets: Sequence[str], data_handler, *, predict_y: str = "return",
+                    horizon_rows: int = 1, device=DEFAULT_DEVICE, dtype=DEFAULT_DTYPE):
+    """(Xs (N, 1), Y (N, P), Xnew (1, 1)): the day index scaled to zero mean
+    and unit population std, every asset's returns on the shared grid, and
+    the horizon input `horizon_rows` steps past the end of the grid."""
+    columns, X_ref = [], None
+    for asset in assets:
+        X, Y, *_ = data_handler.process_data(
+            "Stocks", asset, "d", predict_Y=predict_y, normalize=False, normalize_x=False)
+        if X_ref is None:
+            X_ref = X
+        elif X.shape != X_ref.shape:
+            raise ValueError(f"{asset} is not on the shared trading grid "
+                             f"({X.shape[0]} vs {X_ref.shape[0]} rows)")
+        columns.append(as_tensor(Y, device, dtype).reshape(-1))
+    X_ref = as_tensor(X_ref, device, dtype)
+    # scale the day index for a well-conditioned kernel (ddof 0, as np.std)
+    Xs = (X_ref - X_ref.mean()) / (X_ref.std(correction=0) + 1e-12)
+    step = float(Xs[-1, 0] - Xs[-2, 0]) if Xs.shape[0] > 1 else 1.0
+    return Xs, torch.stack(columns, dim=1), Xs[-1:] + step * horizon_rows
+
+
+def run_frontier_pipeline(
+    assets: Sequence[str],
+    data_handler,
+    *,
+    predict_y: str = "return",
+    rank: int = 2,
+    noise_variance: float = 1e-2,
+    maxiter: int = 300,
+    horizon_rows: int = 1,
+    use_nuts: bool = False,
+    risk_free_rate: float = 0.01 / 252,
+    seed: int = 0,
+    model0: Optional[icm.ICMGPR] = None,
+    device=DEFAULT_DEVICE,
+    dtype=DEFAULT_DTYPE,
+) -> FrontierResult:
+    """The JAX package's `run_frontier_pipeline` on (device, dtype). The fit
+    starts from `model0` when given (moved to device and dtype), else from
+    `ICMGPR.create(SquaredExponential, ...)` with W drawn from a
+    `torch.Generator` seeded by `seed`."""
+    if use_nuts:
+        raise NotImplementedError(
+            "NUTS hyperposterior averaging is not ported yet: ROADMAP.md queue 1, item 14 "
+            "(inference)")
+    # 1. shared-grid multi-output target matrix
+    Xs, Ymat, Xnew = frontier_inputs(assets, data_handler, predict_y=predict_y,
+                                     horizon_rows=horizon_rows, device=device, dtype=dtype)
+    p = len(assets)
+
+    # 2. MLE fit of the ICM model
+    if model0 is None:
+        model0 = icm.ICMGPR.create(
+            km.SquaredExponential.create(device=device, dtype=dtype), num_outputs=p,
+            rank=rank, noise_variance=noise_variance,
+            generator=torch.Generator().manual_seed(seed))
+    else:
+        model0 = tree_to(model0, Xs.device, dtype)
+    res = lbfgs.fit(lambda m: icm.neg_log_marginal_likelihood_chol(m, Xs, Ymat), model0,
+                    maxiter=maxiter)
+    model = res.params
+
+    with torch.no_grad():
+        mu, Sigma = icm.posterior_asset_moments_chol(model, Xs, Ymat, Xnew)
+
+    # 3. frontier
+    mu, Sigma = mu.cpu().numpy(), Sigma.cpu().numpy()
+    frontier = efficient_frontier(mu, Sigma, risk_free_rate=risk_free_rate, device=device,
+                                  dtype=dtype)
+    return FrontierResult(assets=list(assets), mu=mu, Sigma=Sigma, frontier=frontier,
+                          model=model, fit=res)

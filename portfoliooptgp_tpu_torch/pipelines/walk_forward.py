@@ -9,9 +9,9 @@ so the whole walk-forward trains as one batched L-BFGS
 (train/batched_lbfgs.py) and predicts all next-day targets in one batched
 solve. In float32 with a fusable kernel the loss is the masked fused NLL
 kernel (ops/stationary_nll.py); in float64 it is the plain masked NLL, as
-in the JAX package. The dense and blocked_hinv float32 branches run TPU
-kernels that are not ported yet, and the blocked branch has not been held
-against the JAX package's: all three raise NotImplementedError.
+in the JAX package. The dense float32 branch runs TPU kernels that are
+not ported yet, and the blocked and blocked_hinv branches have not been
+held against the JAX package's: all three raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -124,6 +124,7 @@ def batched_walk_forward(
     stacked = tree_map(lambda x: x.repeat((D,) + (1,) * (x.ndim - 1)), stacked_r)
 
     from portfoliooptgp_tpu_torch.ops import blocked_nll as blocked_mod
+    from portfoliooptgp_tpu_torch.ops import nll as nll_mod
     from portfoliooptgp_tpu_torch.ops import stationary_nll as st_mod
 
     f32 = dtype == torch.float32
@@ -143,14 +144,16 @@ def batched_walk_forward(
                         ms.likelihood.variance, masks_dr, dims=spec.dims)
             # the kernel's 2π constant uses the full N; restate it for n_eff
             return nll - 0.5 * (n_full - n_eff_dr) * LOG_2PI
-    elif f32 and gpr_mod.pallas_nll_supported(n_full):
+    elif f32 and nll_mod.pallas_nll_supported(n_full):
         raise gpr_mod.unported_tier("pallas_dense")
     elif f32 and blocked_mod.blocked_nll_preferred(n_full):
         raise NotImplementedError(
             "the walk-forward's float32 blocked branch is not held against the JAX "
             "package yet: ROADMAP.md queue 1, item 6")
-    elif f32 and gpr_mod.hinv_nll_preferred(n_full, D * R):
-        raise gpr_mod.unported_tier("blocked_hinv")
+    elif f32 and blocked_mod.hinv_nll_preferred(n_full, D * R):
+        raise NotImplementedError(
+            "the walk-forward's float32 blocked_hinv branch is not held against the JAX "
+            "package yet: ROADMAP.md queue 1, item 6")
     else:
         def batched_loss(ms):
             return masked_nll(ms, X_full, Y_full, masks_dr)

@@ -1,5 +1,5 @@
-"""The CUDA kernels (stationary NLL, blocked panel factor) against their
-plain PyTorch versions.
+"""The CUDA kernels (stationary NLL, blocked panel factor, triangular
+inverse) against their plain PyTorch versions.
 
 Needs an NVIDIA GPU and nvcc (marker `cuda`); skipped elsewhere. Float32
 on the card with the tolerances of the matching checks in
@@ -160,3 +160,59 @@ def test_torch_cuda_panel_kernel_launch_error_raises(cuda):
         bn.factor_panel_cuda(torch.ones((1, 4, 4), dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError):
         bn.factor_panel_cuda(torch.ones((1, 300, 100), device=cuda))
+
+
+@pytest.mark.parametrize("B,Np", [(20, 1408), (20, 1024), (20, 256), (20, 128), (8, 128)])
+def test_torch_cuda_trinv_kernel_matches_plain(cuda, B, Np):
+    """The triangular-inverse kernel against its plain version at the
+    five-year grid's 220 blocks and the uneven split's sizes; a NaN in one
+    block gives NaN exactly where the plain version has it."""
+    from portfoliooptgp_tpu_torch.ops import nll
+
+    L = torch.linalg.cholesky(_spd(cuda, B, Np, Np).double()).float()
+    L[B - 1, Np - 60, Np - 100] = float("nan")
+    before = nll.LAUNCHES["triangular_inverse"]
+    Wk = nll.triangular_inverse(L)
+    Wp = nll.triangular_inverse_plain(L)
+    torch.cuda.synchronize()
+    assert nll.LAUNCHES["triangular_inverse"] == before + 1
+    assert Wk.shape == (B, Np // 128, 128, 128)
+    assert torch.equal(torch.isnan(Wk), torch.isnan(Wp)) and bool(torch.isnan(Wk).any())
+    fin = ~torch.isnan(Wp)
+    scale = float(Wp[fin].abs().max())
+    torch.testing.assert_close(Wk[fin] / scale, Wp[fin] / scale, rtol=0, atol=3e-3)
+
+
+@pytest.mark.parametrize("B,N", [(3, 1100), (20, 1304)])
+def test_torch_cuda_hinv_nll_matches_cpu(cuda, B, N):
+    """batched_nll_hinv on the card (the kernel) against the same call on
+    CPU copies (the plain version): values rtol 3e-3, gradients normalized
+    atol 2e-2."""
+    from portfoliooptgp_tpu_torch.ops import blocked_nll as bn
+    from portfoliooptgp_tpu_torch.ops import nll
+
+    rng = np.random.default_rng(N)
+    K = _spd(cuda, B, N, B)
+    y = torch.tensor(rng.normal(size=(B, N)), dtype=torch.float32, device=cuda)
+    noise = torch.tensor(rng.uniform(0.1, 0.5, B), dtype=torch.float32, device=cuda)
+    before = nll.LAUNCHES["triangular_inverse"]
+    outs = []
+    for dev in (cuda, "cpu"):
+        leaves = [x.detach().to(dev).requires_grad_(True) for x in (K, y, noise)]
+        value = bn.batched_nll_hinv(*leaves)
+        grads = torch.autograd.grad(value.sum(), leaves)
+        outs.append((value.detach().cpu(), [g.cpu() for g in grads]))
+    assert nll.LAUNCHES["triangular_inverse"] == before + 1
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=3e-3, atol=0)
+    for g, w in zip(outs[0][1], outs[1][1]):
+        scale = max(float(w.abs().max()), 1.0)
+        torch.testing.assert_close(g / scale, w / scale, rtol=0, atol=2e-2)
+
+
+def test_torch_cuda_trinv_kernel_rejects_bad_input(cuda):
+    from portfoliooptgp_tpu_torch.ops import nll
+
+    with pytest.raises(TypeError):
+        nll.triangular_inverse_cuda(torch.eye(128, dtype=torch.float64, device=cuda)[None])
+    with pytest.raises(ValueError):
+        nll.triangular_inverse_cuda(torch.eye(100, device=cuda)[None])

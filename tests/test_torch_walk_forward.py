@@ -180,3 +180,23 @@ def test_torch_walk_forward_blocked_branch_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
         twf.batched_walk_forward(X, Y, n - 2, make_model, maxiter=3,
                                  device="cpu", dtype=torch.float32)
+
+
+def test_torch_walk_forward_hinv_branch_raises():
+    """Float32 with 1024 < padded N ≤ 4096 and a kernel the fused tier
+    cannot take: the walk-forward's blocked_hinv branch raises, naming its
+    ROADMAP.md item, though the hinv tier itself is ported."""
+    n = 1100
+    rng = np.random.default_rng(7)
+    t = np.linspace(0, 40, n)
+    X = np.column_stack([np.sin(t) + 0.1 * rng.normal(size=n), t])
+    Y = (np.sin(t) + 0.08 * rng.normal(size=n))[:, None]
+    o = dict(device="cpu", dtype=torch.float32)
+
+    def make_model(v):
+        kern = (tk.SquaredExponential.create(**o) + tk.Matern12.create(**o)) * tk.Matern32.create(**o)
+        return tgpr.GPR.create(kern, v)
+
+    with pytest.raises(NotImplementedError, match="blocked_hinv branch.*queue 1, item 6"):
+        twf.batched_walk_forward(X, Y, n - 2, make_model, maxiter=3,
+                                 device="cpu", dtype=torch.float32)
