@@ -15,10 +15,11 @@ a GPU instead of dropping to the CPU. Tests pass ``device="cpu"``.
 
 Kernels: `ops/stationary_nll.py`, `ops/blocked_nll.py` and `ops/nll.py`
 launch the hand-written CUDA kernels in `csrc/stationary_nll.cu` (the
-fused NLL tiers), `csrc/blocked_panel.cu` (the blocked tier's panel
-factor) and `csrc/trinv.cu` (the hinv tier's diagonal-block inverse),
-built with nvcc at first use into `build/`, for CUDA tensors, and their
-plain PyTorch versions for CPU tensors.
+fused NLL tiers), `csrc/dense_nll.cu` (the dense tier's factor),
+`csrc/blocked_panel.cu` (the blocked tier's panel factor) and
+`csrc/trinv.cu` (the hinv tier's diagonal-block inverse), built with nvcc
+at first use into `build/`, for CUDA tensors, and their plain PyTorch
+versions for CPU tensors.
 """
 
 from portfoliooptgp_tpu_torch.device import resolve_device

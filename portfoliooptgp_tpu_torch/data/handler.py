@@ -43,7 +43,8 @@ class DataHandler:
         if isFetch or compute_entropy:
             raise NotImplementedError(
                 "network fetch and entropy diagnostics are not ported yet: "
-                "ROADMAP.md queue 1, items 7 and 17")
+                "ROADMAP.md queue 1: data, portfolio and kernel leftovers (fetch); "
+                "ops/entropy.py (entropy)")
         start_date = start_date or self.train_start_date
         end_date = end_date or self.train_end_date
         df = loader.load_frame(self.data_root, file_type, ticker, period, start_date, end_date)

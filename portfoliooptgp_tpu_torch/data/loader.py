@@ -21,7 +21,8 @@ def read_eod_csv(path: str, start_date: Optional[str] = None,
                  end_date: Optional[str] = None, use_native: bool = False) -> pd.DataFrame:
     if use_native:
         raise NotImplementedError(
-            "the native C++ CSV loader is not ported yet: ROADMAP.md queue 1, item 7")
+            "the native C++ CSV loader is not ported yet: ROADMAP.md queue 1: "
+            "data, portfolio and kernel leftovers")
     df = pd.read_csv(path)
     df["date"] = pd.to_datetime(df["date"])
     if start_date is not None:

@@ -9,12 +9,11 @@ JAX package's `jax.vmap` over stacked restarts is that axis.
     log p(Y|X,θ) = -½ Σ_p ‖L⁻¹(Y_p-μ)‖² - P Σ log diag(L) - NP/2 log 2π
 
 `batched_neg_log_marginal_likelihood` routes by kernel structure and N
-exactly as the JAX router does (`nll_tier` names the same tiers). The
-fused tiers launch the CUDA kernel of ops/stationary_nll.py, the
-'blocked' tier the panel kernel of ops/blocked_nll.py, the
-'blocked_hinv' tier the triangular-inverse kernel of ops/nll.py; the tier
-whose kernels are not ported yet ('pallas_dense') raises
-NotImplementedError rather than run a plain path.
+exactly as the JAX router does (`nll_tier` names the same tiers). On a
+GPU the fused tiers launch the CUDA kernel of ops/stationary_nll.py, the
+'pallas_dense' tier the dense kernel of ops/nll.py, the 'blocked' tier
+the panel kernel of ops/blocked_nll.py and the 'blocked_hinv' tier the
+triangular-inverse kernel of ops/nll.py.
 
 A mean function returns (N, 1) (`Zero`) or (B, N, 1); `_err` brings the
 residual Y − μ(X) to (B, N, P) either way.
@@ -209,18 +208,6 @@ _dispatch_logger = logging.getLogger("portfoliooptgp_tpu_torch.dispatch")
 #: Record of NLL dispatch decisions (dicts with tier/N/B), one per call.
 DISPATCH_EVENTS: list = []
 
-#: Unported tiers → the ROADMAP.md queue-2 item that ports their kernel.
-UNPORTED_TIERS = {
-    "pallas_dense": "queue 2, items 1-2 (nll._nll_kernel / _nll_inv_kernel)",
-}
-
-
-def unported_tier(tier: str):
-    return NotImplementedError(
-        f"NLL tier '{tier}' runs a TPU kernel that is not ported yet: "
-        f"ROADMAP.md {UNPORTED_TIERS[tier]}")
-
-
 def _record_tier(tier: str, n: int, b: int) -> None:
     DISPATCH_EVENTS.append({"tier": tier, "n": int(n), "batch": int(b)})
     if len(DISPATCH_EVENTS) > 512:
@@ -267,8 +254,8 @@ def batched_neg_log_marginal_likelihood(stacked_model, X, Y, fast: bool = True,
     """(B,) NLLs of a stacked batch of models sharing (X, Y), routed by
     kernel structure and N like the JAX router. Model, X and Y are moved
     to (device, dtype) first. 'xla' is the plain batched path (the JAX
-    package's vmapped XLA path); the fused and blocked tiers run their
-    CUDA kernels on a GPU; the unported tier raises NotImplementedError."""
+    package's vmapped XLA path); every other tier runs its CUDA kernel on
+    a GPU and its plain version on the CPU."""
     from portfoliooptgp_tpu_torch.ops import stationary_nll as st_mod
 
     dev = resolve_device(device)
@@ -278,14 +265,14 @@ def batched_neg_log_marginal_likelihood(stacked_model, X, Y, fast: bool = True,
     n = X.shape[0]
     b = batch_size(stacked_model)
     tier = nll_tier(stacked_model, X, Y, fast=fast)
-    if tier in UNPORTED_TIERS:
-        raise unported_tier(tier)
     _record_tier(tier, n, b)
     if tier == "xla":
         return neg_log_marginal_likelihood(stacked_model, X, Y)
 
     noise = stacked_model.likelihood.variance
     err = _err(stacked_model, X, Y)[:, :, 0]
+    if tier == "pallas_dense":
+        return nll_mod.batched_nll(stacked_model.kernel.K(X), err, noise)
     if tier == "blocked":
         return blocked_mod.batched_nll_blocked(stacked_model.kernel.K(X), err, noise)
     if tier == "blocked_hinv":

@@ -159,8 +159,8 @@ def neg_log_marginal_likelihood_chol(model: ICMGPR, X, Y):
     routed like the JAX package: a bare isotropic stationary kernel in
     float32 at padded N ≤ 512 is one fused-kernel batch (variance λb_i·σ²_k);
     otherwise Kx is built once and the (P, N, N) batch goes to the dense
-    tier (not ported: raises), the blocked tier, the hinv tier, or the plain
-    batched Cholesky (`nll_chol_tier`)."""
+    tier (padded N ≤ 256, the dense kernel of ops/nll.py), the blocked tier,
+    the hinv tier, or the plain batched Cholesky (`nll_chol_tier`)."""
     from portfoliooptgp_tpu_torch.kernels import stationary as st_kernels
 
     n, p = Y.shape

@@ -1,19 +1,35 @@
-"""Triangular inverse of 128×128 diagonal blocks, and the dense tier's window.
+"""The dense NLL tier, and the triangular inverse of 128×128 diagonal blocks.
 
-Port of portfoliooptgp_tpu/ops/pallas/nll.py, the part the ported tiers
-use: `triangular_inverse` inverts every 128×128 diagonal block of a batch
-of lower-triangular factors, the first stage of the `blocked_hinv` tier's
+Port of portfoliooptgp_tpu/ops/pallas/nll.py.
+
+The dense tier (the router's `pallas_dense`, padded N ≤ 256): `batched_nll`
+factors a prebuilt K + σ²I of B models, solves against the targets and
+takes Σ log diag L. On CUDA tensors the forward is the hand-written kernel
+`csrc/dense_nll.cu` — the TPU kernel `_nll_kernel` when no input needs a
+gradient (the line-search trials), `_nll_inv_kernel`, which also forms
+W = L⁻¹, when one does; on CPU tensors it is `factor_solve_plain` /
+`factor_solve_inv_plain`, the same column loop in torch. The backward is
+the closed form of `_batched_nll_bwd` in full-fp32 torch.matmul (the JAX
+package leaves it to XLA):
+
+    Ks⁻¹ = WᵀW,  α = Wᵀa,  ∂K = ½(Ks⁻¹ − ααᵀ),  ∂y = α,
+    ∂σ² = ½(tr Ks⁻¹ − ‖α‖²).
+
+Nothing is padded (the TPU pads N to 128 with an identity tail and B to 8,
+which changes no result); the 2π constant is the real N's. An indefinite
+pivot gives NaN. `batched_nll_pallas` is the value-only entry of the same
+name.
+
+`triangular_inverse` inverts every 128×128 diagonal block of a batch of
+lower-triangular factors, the first stage of the `blocked_hinv` tier's
 hierarchical inverse (ops/blocked_nll.triangular_inverse_uneven). On CUDA
-tensors it launches the hand-written kernel `csrc/trinv.cu` (the TPU
-kernel `_trinv_kernel`), all B·P blocks in one launch; on CPU tensors it
-runs `triangular_inverse_plain`, the same forward substitution in torch. A
-CUDA tensor never takes the plain version.
+tensors it launches `csrc/trinv.cu` (the TPU kernel `_trinv_kernel`), all
+B·P blocks in one launch; on CPU tensors it runs
+`triangular_inverse_plain`.
 
-The dense tier's fused factor kernels (`_nll_kernel`, `_nll_inv_kernel`)
-are not ported: `batched_nll` raises. `pallas_nll_supported` keeps the
-JAX package's routing window so that the routers name the same tiers.
-
-`LAUNCHES["triangular_inverse"]` counts kernel launches.
+A CUDA tensor never takes a plain version. `LAUNCHES` counts kernel
+launches: "dense_nll" (value only), "dense_nll_inv" (with W) and
+"triangular_inverse".
 """
 
 from __future__ import annotations
@@ -22,22 +38,162 @@ import ctypes
 
 import torch
 
+LOG2PI = 1.8378770664093453
+
 PW = 128  # block width, as the TPU kernel's
 
 # Upper end of the dense tier's window (portfoliooptgp_tpu/ops/pallas/nll.py:188).
 MAX_PALLAS_N = 256
 
-LAUNCHES = {"triangular_inverse": 0}
+LAUNCHES = {"dense_nll": 0, "dense_nll_inv": 0, "triangular_inverse": 0}
 
 
 def pallas_nll_supported(n: int) -> bool:
     return n + ((-n) % 128) <= MAX_PALLAS_N
 
 
+# -- the dense tier ---------------------------------------------------------
+
+def _check_dense(K, y, noise):
+    if K.ndim != 3 or K.shape[1] != K.shape[2] or y.shape != K.shape[:2] \
+            or noise.shape != K.shape[:1]:
+        raise ValueError(f"dense NLL operands K {tuple(K.shape)}, y {tuple(y.shape)}, "
+                         f"noise {tuple(noise.shape)} are not (B, N, N), (B, N), (B,)")
+    if K.shape[1] > MAX_PALLAS_N:
+        raise ValueError(f"the dense NLL takes N ≤ {MAX_PALLAS_N}, got {K.shape[1]}")
+
+
+def _factor_solve_loop(K, y, noise, with_inverse):
+    """The kernel's column loop in torch: (a, Σ log diag L, W or None)."""
+    _check_dense(K, y, noise)
+    B, N, _ = K.shape
+    A = torch.tril(K) + torch.diag_embed(noise[:, None].expand(B, N))
+    a = y.clone()
+    logdet = torch.zeros_like(noise)
+    W = torch.eye(N, dtype=K.dtype, device=K.device).expand(B, N, N).clone() \
+        if with_inverse else None
+    for k in range(N):
+        d = torch.sqrt(A[:, k, k])
+        ak = a[:, k] / d
+        col = A[:, k + 1:, k] / d[:, None]
+        a[:, k + 1:] -= col * ak[:, None]
+        a[:, k] = ak
+        logdet = logdet + torch.log(d)
+        if with_inverse:
+            W[:, k, :k + 1] /= d[:, None]
+            W[:, k + 1:, :k + 1] -= col[:, :, None] * W[:, k, None, :k + 1]
+        A[:, k + 1:, k + 1:] -= col[:, :, None] * col[:, None, :]
+    return a, logdet, W
+
+
+def factor_solve_plain(K, y, noise):
+    """K (B, N, N), y (B, N), noise (B,) → (a = L⁻¹y (B, N), Σ log diag L
+    (B,)) with L L^T = K + σ²I, column by column as the kernel runs it.
+    Only the lower triangle of K is read; an indefinite pivot gives NaN."""
+    a, logdet, _ = _factor_solve_loop(K, y, noise, False)
+    return a, logdet
+
+
+def factor_solve_inv_plain(K, y, noise):
+    """`factor_solve_plain` plus W = L⁻¹ (B, N, N), formed in the same
+    column loop: (a, Σ log diag L, W)."""
+    return _factor_solve_loop(K, y, noise, True)
+
+
+_DENSE_LIB = None
+
+
+def _dense_lib():
+    global _DENSE_LIB
+    if _DENSE_LIB is None:
+        from portfoliooptgp_tpu_torch.ops import cuda_build
+
+        lib = cuda_build.load("dense_nll")
+        lib.dense_nll_launch.restype = ctypes.c_int
+        lib.dense_nll_launch.argtypes = (
+            [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 6
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        _DENSE_LIB = lib
+    return _DENSE_LIB
+
+
+def factor_solve_cuda(K, y, noise, with_inverse):
+    """Launch the CUDA kernel: (nll (B,), a (B, N), Σ log diag L (B,),
+    W (B, N, N) or None). K is read in place through its strides."""
+    for t in (K, y, noise):
+        if t.device.type != "cuda" or t.dtype != torch.float32:
+            raise TypeError("the dense NLL kernel takes float32 CUDA tensors, got "
+                            f"{t.dtype} on {t.device}")
+    _check_dense(K, y, noise)
+    y, noise = y.contiguous(), noise.contiguous()
+    B, N, _ = K.shape
+    opts = dict(dtype=torch.float32, device=K.device)
+    nll = torch.empty((B,), **opts)
+    logdet = torch.empty((B,), **opts)
+    a = torch.empty((B, N), **opts)
+    W = torch.empty((B, N, N), **opts) if with_inverse else None
+    with torch.cuda.device(K.device):
+        stream = torch.cuda.current_stream(K.device).cuda_stream
+        rc = _dense_lib().dense_nll_launch(
+            ctypes.c_void_p(K.data_ptr()), K.stride(0), K.stride(1), K.stride(2),
+            ctypes.c_void_p(y.data_ptr()), ctypes.c_void_p(noise.data_ptr()),
+            ctypes.c_void_p(nll.data_ptr()), ctypes.c_void_p(logdet.data_ptr()),
+            ctypes.c_void_p(a.data_ptr()),
+            ctypes.c_void_p(0 if W is None else W.data_ptr()), B, N,
+            ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"dense_nll kernel launch failed: CUDA error {rc}")
+    LAUNCHES["dense_nll_inv" if with_inverse else "dense_nll"] += 1
+    return nll, a, logdet, W
+
+
+def factor_solve(K, y, noise, with_inverse):
+    """The kernel's wrapper: (nll (B,), a, Σ log diag L, W or None). CUDA
+    tensors launch the kernel, CPU tensors take the plain version."""
+    if K.device.type == "cuda":
+        return factor_solve_cuda(K, y, noise, with_inverse)
+    if K.device.type == "cpu":
+        a, logdet, W = _factor_solve_loop(K, y, noise, with_inverse)
+        nll = 0.5 * torch.sum(a * a, dim=-1) + logdet + 0.5 * K.shape[1] * LOG2PI
+        return nll, a, logdet, W
+    raise ValueError(f"unsupported device {K.device}")
+
+
+class _DenseNLL(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, K, y, noise):
+        with_inverse = any(ctx.needs_input_grad)
+        nll, a, _, W = factor_solve(K, y, noise, with_inverse)
+        if with_inverse:
+            ctx.save_for_backward(W, a)
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        W, a = ctx.saved_tensors
+        Wt = W.transpose(-1, -2)
+        Kinv = Wt @ W
+        alpha = (Wt @ a[..., None])[..., 0]
+        dK = 0.5 * (Kinv - alpha[:, :, None] * alpha[:, None, :])
+        dnoise = 0.5 * (torch.diagonal(Kinv, dim1=-2, dim2=-1).sum(-1)
+                        - torch.sum(alpha * alpha, dim=-1))
+        return g[:, None, None] * dK, g[:, None] * alpha, g * dnoise
+
+
 def batched_nll(K, y, noise):
-    raise NotImplementedError(
-        "the dense NLL tier's kernels (nll._nll_kernel / _nll_inv_kernel) are not "
-        "ported yet: ROADMAP.md queue 2, items 1-2")
+    """Differentiable NLL of B GPR models: K (B, N, N) kernel matrices
+    (lower triangle read), y (B, N) targets, noise (B,) variances added to
+    the diagonal; N ≤ 256. Returns (B,) NLLs with the 2π constant at N."""
+    return _DenseNLL.apply(K, y, noise)
+
+
+def batched_nll_pallas(K, y, noise):
+    """Value-only NLL of B models (no gradient; never forms W)."""
+    with torch.no_grad():
+        return factor_solve(K, y, noise, False)[0]
+
+
+# -- the triangular inverse of the blocked_hinv tier ------------------------
 
 
 def _check(L):

@@ -12,7 +12,7 @@ Port of portfoliooptgp_tpu/pipelines/frontier_pipeline.py:
    frontier and the tangency portfolio.
 
 Averaging over a NUTS hyperposterior (`use_nuts=True`) waits for the
-inference module (ROADMAP.md queue 1, item 14) and raises.
+inference module (ROADMAP.md queue 1: inference/) and raises.
 """
 
 from __future__ import annotations
@@ -86,8 +86,8 @@ def run_frontier_pipeline(
     `torch.Generator` seeded by `seed`."""
     if use_nuts:
         raise NotImplementedError(
-            "NUTS hyperposterior averaging is not ported yet: ROADMAP.md queue 1, item 14 "
-            "(inference)")
+            "NUTS hyperposterior averaging is not ported yet: ROADMAP.md queue 1: "
+            "inference/")
     # 1. shared-grid multi-output target matrix
     Xs, Ymat, Xnew = frontier_inputs(assets, data_handler, predict_y=predict_y,
                                      horizon_rows=horizon_rows, device=device, dtype=dtype)

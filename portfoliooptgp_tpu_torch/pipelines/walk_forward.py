@@ -7,11 +7,12 @@ row of one batched training problem over the full design matrix:
 
 so the whole walk-forward trains as one batched L-BFGS
 (train/batched_lbfgs.py) and predicts all next-day targets in one batched
-solve. In float32 with a fusable kernel the loss is the masked fused NLL
-kernel (ops/stationary_nll.py); in float64 it is the plain masked NLL, as
-in the JAX package. The dense float32 branch runs TPU kernels that are
-not ported yet, and the blocked and blocked_hinv branches have not been
-held against the JAX package's: all three raise NotImplementedError.
+solve. In float32 the loss is the masked fused NLL kernel
+(ops/stationary_nll.py) for a fusable kernel, else, at padded N ≤ 256,
+the dense NLL kernel (ops/nll.py) on the masked system; in float64 it is
+the plain masked NLL, as in the JAX package. The float32 blocked and
+blocked_hinv branches have not been held against the JAX package's and
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -87,6 +88,8 @@ def batched_walk_forward(
     restart_noise_inits: Sequence[float] = (1e-3,),
     maxiter: int = 200,
     train_likelihood_variance: bool = True,
+    warm_start: bool = False,
+    warm_maxiter: Optional[int] = None,
     mesh=None,
     device=DEFAULT_DEVICE,
     dtype=DEFAULT_DTYPE,
@@ -97,12 +100,16 @@ def batched_walk_forward(
     make_model(noise_variance) -> fresh GPR (batch 1) on (device, dtype).
     Day d trains on rows [: n_train + d] and predicts row n_train + d.
     With R restart noise inits the batch is D×R rows (day-major) and the
-    best restart per day is picked by final loss. The JAX package's
-    `warm_start` option is not ported (ROADMAP.md queue 1, item 6)."""
+    best restart per day is picked by final loss.
+
+    warm_start=True first trains day 0's R restarts to convergence on its
+    prefix, then starts every day's row from the matching day-0 optimum and
+    polishes the whole D×R batch for `warm_maxiter` iterations (default
+    max(maxiter // 4, 10))."""
     if mesh is not None:
         raise NotImplementedError(
             "restart-axis sharding over a mesh is not ported yet: ROADMAP.md "
-            "queue 1, item 18 (parallel/)")
+            "queue 1: parallel/")
     dev = resolve_device(device)
     X_full = as_tensor(X_full, dev, dtype)
     Y_full = as_tensor(Y_full, dev, dtype)
@@ -119,6 +126,13 @@ def batched_walk_forward(
     masks_dr = torch.repeat_interleave(masks, R, dim=0)  # (D*R, n)
     frozen = (None if train_likelihood_variance
               else lbfgs.freeze_leaves(models[0], likelihood=True))
+
+    if warm_start:
+        masks_r0 = masks[:1].expand(R, n_full)
+        stacked_r, _ = batched_lbfgs.fit_batched_fused(
+            lambda ms: masked_nll(ms, X_full, Y_full, masks_r0), stacked_r,
+            frozen=frozen, maxiter=maxiter, **fit_kw)
+        maxiter = warm_maxiter if warm_maxiter is not None else max(maxiter // 4, 10)
 
     # tile to (D*R, ...): day-major so reshape recovers (D, R)
     stacked = tree_map(lambda x: x.repeat((D,) + (1,) * (x.ndim - 1)), stacked_r)
@@ -145,15 +159,24 @@ def batched_walk_forward(
             # the kernel's 2π constant uses the full N; restate it for n_eff
             return nll - 0.5 * (n_full - n_eff_dr) * LOG_2PI
     elif f32 and nll_mod.pallas_nll_supported(n_full):
-        raise gpr_mod.unported_tier("pallas_dense")
+        # the dense kernel on the masked system, which carries its own
+        # diagonal (mask·σ² + 1 − mask): zero added noise
+        def batched_loss(ms):
+            Kb, errb = masked_system(ms, X_full, Y_full, masks_dr)
+            nll = nll_mod.batched_nll(Kb, errb[:, :, 0],
+                                      torch.zeros_like(n_eff_dr))
+            # the kernel's 2π constant uses the full N; restate it for n_eff
+            return nll - 0.5 * (n_full - n_eff_dr) * LOG_2PI
     elif f32 and blocked_mod.blocked_nll_preferred(n_full):
         raise NotImplementedError(
             "the walk-forward's float32 blocked branch is not held against the JAX "
-            "package yet: ROADMAP.md queue 1, item 6")
+            "package yet: ROADMAP.md queue 1: the walk-forward's float32 blocked and "
+            "blocked_hinv branches")
     elif f32 and blocked_mod.hinv_nll_preferred(n_full, D * R):
         raise NotImplementedError(
             "the walk-forward's float32 blocked_hinv branch is not held against the JAX "
-            "package yet: ROADMAP.md queue 1, item 6")
+            "package yet: ROADMAP.md queue 1: the walk-forward's float32 blocked and "
+            "blocked_hinv branches")
     else:
         def batched_loss(ms):
             return masked_nll(ms, X_full, Y_full, masks_dr)

@@ -5,8 +5,8 @@ Port of portfoliooptgp_tpu/portfolio/frontier.py (`Frontier`,
 `efficient_frontier`). Each point is one simplex solve with a return floor
 (portfolio/solver.minimize_simplex). The JAX package vmaps the 32 solves;
 here they are a Python loop, each solve independent of the others.
-`plot_frontier` waits for the plotting module (ROADMAP.md queue 1,
-item 19).
+`plot_frontier` waits for the plotting module (ROADMAP.md queue 1:
+shell).
 """
 
 from __future__ import annotations

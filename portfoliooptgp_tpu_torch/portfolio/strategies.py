@@ -74,7 +74,7 @@ class DynamicStrategy(Strategy):
         if mesh is not None:
             raise NotImplementedError(
                 "the mesh-sharded MC estimate is not ported yet: ROADMAP.md "
-                "queue 1, item 18")
+                "queue 1: parallel/")
         self.decision = decision
 
     def optimize(self, optimizer, max_volatility, min_return, mu_A=None, cov_A=None,

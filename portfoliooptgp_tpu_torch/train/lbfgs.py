@@ -26,7 +26,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from portfoliooptgp_tpu_torch.params import tree_leaves, tree_map, tree_replace
+from portfoliooptgp_tpu_torch.params import batch_size, tree_leaves, tree_map, tree_replace
 
 
 class FitResult(NamedTuple):
@@ -322,6 +322,31 @@ def fit(
         params=unflatten(x), loss=value, grad_norm=gn, iters=it,
         converged=bool(gn <= gtol or abs(prev_value - value)
                        <= ftol * max(1.0, abs(value))))
+
+
+class BatchedFitResult(NamedTuple):
+    params: object  # a stacked model tree (batch B)
+    loss: torch.Tensor  # (B,)
+    grad_norm: torch.Tensor  # (B,)
+    iters: torch.Tensor  # (B,)
+    converged: torch.Tensor  # (B,)
+
+
+def fit_batched(loss_fn: Callable, stacked_params, **kwargs) -> BatchedFitResult:
+    """`fit` of every model of a stacked tree (batch B), each with its own
+    iterations and stopping rule, as the JAX package's vmap of `fit` runs
+    them. `loss_fn` takes one model (batch 1) and returns its scalar loss;
+    `frozen`, if given, is the mask tree of one model."""
+    results = [fit(loss_fn, index_pytree(stacked_params, i), **kwargs)
+               for i in range(batch_size(stacked_params))]
+    leaf = tree_leaves(stacked_params)[0]
+    opts = dict(dtype=leaf.dtype, device=leaf.device)
+    return BatchedFitResult(
+        params=stack_pytrees([r.params for r in results]),
+        loss=torch.tensor([r.loss for r in results], **opts),
+        grad_norm=torch.tensor([r.grad_norm for r in results], **opts),
+        iters=torch.tensor([r.iters for r in results], device=leaf.device),
+        converged=torch.tensor([r.converged for r in results], device=leaf.device))
 
 
 # -- stacked model trees -----------------------------------------------------

@@ -216,3 +216,77 @@ def test_torch_cuda_trinv_kernel_rejects_bad_input(cuda):
         nll.triangular_inverse_cuda(torch.eye(128, dtype=torch.float64, device=cuda)[None])
     with pytest.raises(ValueError):
         nll.triangular_inverse_cuda(torch.eye(100, device=cuda)[None])
+
+
+@pytest.mark.parametrize("with_w", [False, True], ids=["value", "inverse"])
+@pytest.mark.parametrize("B,N", [(1, 72), (4, 72), (20, 77), (5, 77), (8, 224), (128, 256),
+                                 (3, 131)])
+def test_torch_cuda_dense_kernel_matches_plain(cuda, B, N, with_w):
+    """The dense NLL kernel (both variants) against its plain version at the
+    multi-input shapes, tools/smoke_tpu.py's N = 224 and the window's top:
+    a, Σ log diag L and W within 3e-3 of their largest value; the last
+    model made indefinite halfway gives NaN exactly where the plain version
+    has it."""
+    from portfoliooptgp_tpu_torch.ops import nll
+
+    K = _spd(cuda, B, N, B + N)
+    K[-1, N // 2:, N // 2:] -= 5.0 * N * torch.eye(N - N // 2, device=cuda)
+    rng = np.random.default_rng(N)
+    y = torch.tensor(rng.normal(size=(B, N)), dtype=torch.float32, device=cuda)
+    noise = torch.tensor(rng.uniform(0.05, 0.3, B), dtype=torch.float32, device=cuda)
+    key = "dense_nll_inv" if with_w else "dense_nll"
+    before = nll.LAUNCHES[key]
+    nll_k, a, logdet, W = nll.factor_solve_cuda(K, y, noise, with_w)
+    want = nll.factor_solve_inv_plain(K, y, noise)
+    torch.cuda.synchronize()
+    assert nll.LAUNCHES[key] == before + 1
+    assert (W is not None) == with_w
+    for got, ref in zip((a, logdet, W), want):
+        if got is None:
+            continue
+        assert torch.equal(torch.isnan(got), torch.isnan(ref)) and bool(torch.isnan(got[-1]).any())
+        fin = ~torch.isnan(ref)
+        if bool(fin.any()):  # B = 1: the one model's log-det is NaN
+            scale = float(ref[fin].abs().max())
+            torch.testing.assert_close(got[fin] / scale, ref[fin] / scale, rtol=0, atol=3e-3)
+    assert torch.isnan(nll_k[-1]) and torch.all(torch.isfinite(nll_k[:-1]))
+
+
+@pytest.mark.parametrize("B,N", [(20, 77), (128, 256), (3, 131)])
+def test_torch_cuda_dense_nll_matches_cpu(cuda, B, N):
+    """batched_nll on the card (the kernels) against the same call on CPU
+    copies (the plain version): values rtol 3e-3, gradients normalized atol
+    2e-2; the value launches the value-only kernel, value+grad the inverse."""
+    from portfoliooptgp_tpu_torch.ops import nll
+
+    rng = np.random.default_rng(N)
+    K = _spd(cuda, B, N, B)
+    y = torch.tensor(rng.normal(size=(B, N)), dtype=torch.float32, device=cuda)
+    noise = torch.tensor(rng.uniform(0.1, 0.5, B), dtype=torch.float32, device=cuda)
+    before = dict(nll.LAUNCHES)
+    with torch.no_grad():
+        nll.batched_nll(K, y, noise)
+    outs = []
+    for dev in (cuda, "cpu"):
+        leaves = [x.detach().to(dev).requires_grad_(True) for x in (K, y, noise)]
+        value = nll.batched_nll(*leaves)
+        grads = torch.autograd.grad(value.sum(), leaves)
+        outs.append((value.detach().cpu(), [g.cpu() for g in grads]))
+    assert nll.LAUNCHES["dense_nll"] == before["dense_nll"] + 1
+    assert nll.LAUNCHES["dense_nll_inv"] == before["dense_nll_inv"] + 1
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=3e-3, atol=0)
+    for g, w in zip(outs[0][1], outs[1][1]):
+        scale = max(float(w.abs().max()), 1.0)
+        torch.testing.assert_close(g / scale, w / scale, rtol=0, atol=2e-2)
+
+
+def test_torch_cuda_dense_kernel_rejects_bad_input(cuda):
+    from portfoliooptgp_tpu_torch.ops import nll
+
+    K = torch.eye(8, device=cuda)[None]
+    y, noise = torch.zeros((1, 8), device=cuda), torch.ones(1, device=cuda)
+    with pytest.raises(TypeError):
+        nll.factor_solve_cuda(K.double(), y, noise, False)
+    with pytest.raises(ValueError):
+        nll.factor_solve_cuda(torch.eye(257, device=cuda)[None], torch.zeros((1, 257), device=cuda),
+                              noise, True)

@@ -98,5 +98,5 @@ def _scaled_inputs(root, names):
 def test_torch_frontier_pipeline_nuts_raises(market):
     root, names = market
     dh = TDataHandler(data_root=root, device="cpu", dtype=torch.float64, **DATES)
-    with pytest.raises(NotImplementedError, match="queue 1, item 14"):
+    with pytest.raises(NotImplementedError, match="queue 1: inference/"):
         trun(names, dh, use_nuts=True, device="cpu", dtype=torch.float64, **ARGS)

@@ -52,16 +52,16 @@ def _data(n, p, seed):
     return X, np.sin(X) @ loadings + 0.1 * rng.normal(size=(n, p))
 
 
-def _models(p, rank, dtype, distinct=True, **create):
+def _models(p, rank, dtype, distinct=True, kernel="SquaredExponential", **create):
     """The same ICM model in both packages (κ spread when `distinct`)."""
-    jm = jicm.ICMGPR.create(jk.SquaredExponential.create(1.2, 0.8), num_outputs=p, rank=rank,
+    jm = jicm.ICMGPR.create(getattr(jk, kernel).create(1.2, 0.8), num_outputs=p, rank=rank,
                             noise_variance=0.1, w_scale=0.5, **create)
     if distinct:
         jm = dataclasses.replace(jm, raw_kappa=jpositive_inv(jnp.linspace(0.5, 2.0, p)))
     jm = jax.tree.map(lambda x: jnp.asarray(x, dtype), jm)
     tdt = torch.float32 if dtype == jnp.float32 else torch.float64
     tm = tparams.from_jax_leaves(
-        ticm.ICMGPR.create(tk.SquaredExponential.create(device="cpu", dtype=tdt), p, rank=rank),
+        ticm.ICMGPR.create(getattr(tk, kernel).create(device="cpu", dtype=tdt), p, rank=rank),
         [np.asarray(x) for x in jax.tree.leaves(jm)])
     return jm, tm
 
@@ -169,6 +169,26 @@ def test_torch_icm_chol_nll_float32_matches_jax(n, tier):
     for g, w in zip(tgrads, jax.tree.leaves(jgrad)):
         w = np.asarray(w)
         np.testing.assert_allclose(g.reshape(w.shape), w, atol=2e-2 * max(np.abs(w).max(), 1.0))
+
+
+def test_torch_icm_chol_nll_dense_float32_matches_jax():
+    """The Cholesky NLL's dense branch in float32: a RationalQuadratic kernel
+    (which the fused branch refuses) at N = 60, P = 3, through the port's
+    dense NLL (its plain version on the CPU) against JAX's dense Pallas
+    kernels in interpret mode; tests/test_pallas_nll.py's tolerances
+    (value rtol 2e-4, gradients rtol 5e-3 / atol 5e-4)."""
+    X, Y = _data(60, 3, 5)
+    X, Y = X.astype(np.float32), Y.astype(np.float32)
+    jm, tm = _models(3, 2, jnp.float32, kernel="RationalQuadratic")
+    tX, tY = torch.tensor(X), torch.tensor(Y)
+    assert ticm.nll_chol_tier(tm, tX, tY) == "dense"
+    jval, jgrad = jax.value_and_grad(
+        lambda m: jicm.neg_log_marginal_likelihood_chol(m, jnp.asarray(X), jnp.asarray(Y)))(jm)
+    tval, tgrads = _grads(ticm.neg_log_marginal_likelihood_chol, tm, tX, tY)
+    np.testing.assert_allclose(float(tval), float(jval), rtol=2e-4)
+    for g, w in zip(tgrads, jax.tree.leaves(jgrad)):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.reshape(w.shape), w, rtol=5e-3, atol=5e-4)
 
 
 def test_torch_efficient_frontier_float64_matches_jax():

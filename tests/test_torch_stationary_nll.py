@@ -17,9 +17,11 @@ import torch
 from portfoliooptgp_tpu import kernels as jk
 from portfoliooptgp_tpu.models import gpr as jgpr
 from portfoliooptgp_tpu.ops.pallas import stationary_nll as jst
+from portfoliooptgp_tpu.pipelines import walk_forward as jwf
 from portfoliooptgp_tpu_torch import kernels as tk
 from portfoliooptgp_tpu_torch import params as tparams
 from portfoliooptgp_tpu_torch.models import gpr as tgpr
+from portfoliooptgp_tpu_torch.ops import nll as tnll
 from portfoliooptgp_tpu_torch.ops import stationary_nll as tst
 from portfoliooptgp_tpu_torch.pipelines import walk_forward as twf
 
@@ -170,9 +172,20 @@ def test_torch_nll_tier_names_match_jax(case):
     want = jgpr.nll_tier(jm, jnp.asarray(X, jdt), jnp.asarray(Y, jdt))
     got = tgpr.nll_tier(tm, torch.as_tensor(X, dtype=tdt), torch.as_tensor(Y, dtype=tdt))
     assert got == want
-    if got in tgpr.UNPORTED_TIERS:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tgpr.batched_neg_log_marginal_likelihood(tm, X, Y, device="cpu", dtype=tdt)
+    if got == "pallas_dense":
+        # the dense tier against JAX's (its Pallas kernels in interpret mode),
+        # values and gradients of every raw leaf, at tests/test_pallas_nll.py's
+        # tolerances
+        jX, jY = jnp.asarray(X, jdt), jnp.asarray(Y, jdt)
+        jval, jgrad = jax.value_and_grad(lambda m: jnp.sum(
+            jgpr.batched_neg_log_marginal_likelihood(m, jX, jY)))(jm)
+        tm = tparams.tree_map(lambda x: x.requires_grad_(True), tm)
+        tval = tgpr.batched_neg_log_marginal_likelihood(tm, X, Y, device="cpu", dtype=tdt)
+        tval.sum().backward()
+        assert tgpr.DISPATCH_EVENTS[-1]["tier"] == "pallas_dense"
+        np.testing.assert_allclose(float(tval.detach().sum()), float(jval), rtol=2e-4)
+        for g, w in zip(tparams.tree_leaves(tm), jax.tree.leaves(jgrad)):
+            np.testing.assert_allclose(g.grad.numpy(), np.asarray(w), rtol=5e-3, atol=5e-4)
 
 
 @pytest.mark.parametrize("kind", ["fused_stationary", "fused_general_prod", "fused_general_sum"])
@@ -213,19 +226,47 @@ def test_torch_router_fused_tiers_match_jax_xla(kind):
 
 
 def test_torch_walk_forward_dense_branch_raises():
-    """Float32 with a kernel the fused tier cannot take: the JAX package
-    would run its dense Pallas kernel, so the port raises."""
+    """Float32 with a kernel the fused tier cannot take: the walk-forward's
+    dense branch (the masked system through the dense NLL, its plain version
+    on the CPU) against JAX's, whose dense Pallas kernel runs in interpret
+    mode, over 3 days × 2 restarts. The two L-BFGS runs take float32 steps
+    from gradients that differ in the last digits, so the fit is held at
+    float32 optimizer accuracy: losses rtol 1e-4, next-day means atol 2e-3,
+    variances rtol 2e-2 (tests/test_torch_walk_forward.py's float32 limits)."""
     rng = np.random.default_rng(5)
-    X = rng.uniform(0, 5, (20, 2))
-    Y = rng.normal(size=(20, 1))
+    t = np.linspace(0, 4, 20)
+    X = np.column_stack([np.sin(t) + 0.1 * rng.normal(size=20), t]).astype(np.float32)
+    Y = (np.sin(t) + 0.1 * rng.normal(size=20))[:, None].astype(np.float32)
     o = dict(device="cpu", dtype=torch.float32)
 
-    def make_model(v):
+    def tmodel(v):
         kern = (tk.SquaredExponential.create(**o) + tk.Matern12.create(**o)) * tk.Matern32.create(**o)
         return tgpr.GPR.create(kern, v)
 
-    with pytest.raises(NotImplementedError, match="pallas_dense"):
-        twf.batched_walk_forward(X, Y, 18, make_model, device="cpu", dtype=torch.float32)
+    def jmodel(v):
+        kern = (jk.SquaredExponential.create() + jk.Matern12.create()) * jk.Matern32.create()
+        return jax.tree.map(lambda x: jnp.asarray(x, jnp.float32), jgpr.GPR.create(kern, v))
+
+    kw = dict(restart_noise_inits=(1e-2, 1e-1), maxiter=30)
+    jres = jax.jit(lambda X, Y: jwf.batched_walk_forward(X, Y, 17, jmodel, **kw))(
+        jnp.asarray(X), jnp.asarray(Y))
+    calls = []
+    real = tnll.factor_solve
+
+    def spy(*args):
+        calls.append(args[0].shape)
+        return real(*args)
+
+    tnll.factor_solve = spy
+    try:
+        tres = twf.batched_walk_forward(X, Y, 17, tmodel, device="cpu", dtype=torch.float32,
+                                        **kw)
+    finally:
+        tnll.factor_solve = real
+    assert calls and all(c == (6, 20, 20) for c in calls)
+    np.testing.assert_allclose(tres.losses.numpy(), np.asarray(jres.losses), rtol=1e-4)
+    np.testing.assert_allclose(tres.f_mean.numpy(), np.asarray(jres.f_mean), atol=2e-3)
+    np.testing.assert_allclose(tres.f_var.numpy(), np.asarray(jres.f_var), rtol=2e-2)
 
 
 def test_torch_entry_points_raise_without_gpu():

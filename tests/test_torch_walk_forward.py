@@ -10,6 +10,7 @@ of ~-27) is flat and undetermined. The float32 test drives the
 fused-kernel branch (its plain version on CPU) and holds it to the
 float64 result at float32 accuracy."""
 
+import json
 import tempfile
 
 import jax
@@ -18,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from benchmarks.bench_portfolio_e2e import ASSETS, DATES, FEATURES, make_market
 from portfoliooptgp_tpu import kernels as jk
 from portfoliooptgp_tpu.models import gpr as jgpr
@@ -153,13 +155,42 @@ def test_torch_run_step_4_matches_jax_one_asset(market, monkeypatch):
 
 
 def test_torch_run_arima_and_sequential_step_4(market):
+    """ARIMA against JAX, and the literal day-by-day step 4 with the
+    Polynomial pair on the CPU's plain branch against the JAX package's
+    float64 run (tests/goldens_torch/multi_input_poly.json, case
+    step4/poly/fixed; JAX's fast branch, which in float64 takes the same
+    loss and optimizer for a fixed likelihood): rtol 1e-4 as above."""
     kw = dict(ticker=ASSETS[1], features=FEATURES, data_root=market, **DATES)
     tp = TMultiInputGPR(**kw, **CPU64)
     got = tp.run_arima()
     want = JMultiInputGPR(**kw).run_arima()
     np.testing.assert_allclose(got["forecast"], want["forecast"], rtol=1e-12)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tp.run_step_4(batched=False)
+    with open(cs.multi_input_goldens_path()) as fh:
+        golden = json.load(fh)["cases"]["step4/poly/fixed"]
+    seq = TMultiInputGPR(ticker=cs.MULTI_INPUT_TICKER, features=FEATURES, data_root=market,
+                         maxiter=cs.MULTI_INPUT_MAXITER, removal_percentage=0.2,
+                         kernel_pairs=cs.multi_input_pairs()["poly"], **DATES,
+                         **CPU64).run_step_4(batched=False)
+    np.testing.assert_allclose(seq.f_mean, golden["f_mean"], rtol=1e-4, atol=1e-8)
+    np.testing.assert_allclose(seq.f_var, golden["f_var"], rtol=1e-4, atol=1e-12)
+    np.testing.assert_allclose(seq.actual, golden["actual"], rtol=1e-12)
+
+
+def test_torch_walk_forward_warm_start_matches_jax():
+    """warm_start: day 0's restarts trained to convergence, then every day
+    polished from them (warm_maxiter default max(maxiter // 4, 10)); 4 days
+    × 2 restarts, float64, the tolerances of the cold test above."""
+    X, Y = _series(seed=2)
+    kw = dict(restart_noise_inits=(1e-3, 1e-1), maxiter=60, warm_start=True)
+    jres = _jitted_walk_forward(
+        jnp.asarray(X), jnp.asarray(Y), 36,
+        lambda v: jgpr.GPR.create(jk.composite_kernel(2), v), **kw)
+    tres = twf.batched_walk_forward(
+        X, Y, 36, lambda v: tgpr.GPR.create(tk.composite_kernel(2, **CPU64), v),
+        device="cpu", dtype=torch.float64, **kw)
+    np.testing.assert_allclose(tres.losses.numpy(), np.asarray(jres.losses), rtol=1e-8)
+    np.testing.assert_allclose(tres.f_mean.numpy(), np.asarray(jres.f_mean), rtol=1e-4, atol=1e-8)
+    np.testing.assert_allclose(tres.f_var.numpy(), np.asarray(jres.f_var), rtol=1e-4, atol=1e-12)
 
 
 def test_torch_walk_forward_blocked_branch_raises():
@@ -177,7 +208,8 @@ def test_torch_walk_forward_blocked_branch_raises():
         kern = (tk.SquaredExponential.create(**o) + tk.Matern12.create(**o)) * tk.Matern32.create(**o)
         return tgpr.GPR.create(kern, v)
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1: the walk-forward's "
+                       "float32 blocked and blocked_hinv branches"):
         twf.batched_walk_forward(X, Y, n - 2, make_model, maxiter=3,
                                  device="cpu", dtype=torch.float32)
 
@@ -197,6 +229,7 @@ def test_torch_walk_forward_hinv_branch_raises():
         kern = (tk.SquaredExponential.create(**o) + tk.Matern12.create(**o)) * tk.Matern32.create(**o)
         return tgpr.GPR.create(kern, v)
 
-    with pytest.raises(NotImplementedError, match="blocked_hinv branch.*queue 1, item 6"):
+    with pytest.raises(NotImplementedError,
+                       match="blocked_hinv branch.*queue 1: the walk-forward's float32"):
         twf.batched_walk_forward(X, Y, n - 2, make_model, maxiter=3,
                                  device="cpu", dtype=torch.float32)

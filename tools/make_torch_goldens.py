@@ -36,6 +36,28 @@ in float32 on one core, the 5y grid about 18 min in float64 and 2 min in
 float32 on three:
 
     JAX_PLATFORMS=cpu python tools/make_torch_goldens.py --frontier 5y --float32
+
+With `--multi-input` it runs the JAX package's multi-input pipeline on
+`benchmarks.bench_portfolio_e2e.make_market` instead and writes
+tests/goldens_torch/multi_input_poly.json (float64) or, with `--float32`,
+multi_input_poly_f32.json. `trainer._fast_default` is patched to True, so
+JAX on the CPU takes the branch a GPU takes: the routed batched NLL (the
+dense Pallas kernel in interpret mode in float32 for the Polynomial pair)
+and `fit_batched_fused` for the likelihood restarts. It records, for one
+asset (`chip_smoke.MULTI_INPUT_TICKER`), steps 1, 2 and 3 with the default
+pair and with `(Polynomial, Exponential)`, fixed and trained likelihood,
+and `run_step_4(batched=False)` with the Polynomial pair and fixed
+likelihood: per case the kept features, N, the float32 tier, every fit's
+final loss, σ², restart losses and winner, train MSE and final leaves, and
+the step's outputs; the float32 run also records, per fit, its routed NLL
+at the float64 golden's leaves (so the float64 run goes first). Then the
+5-asset workflow with the Polynomial pair and
+trained likelihood (step 4 batched over 5 days × 4 restarts): each asset's
+next-day means, variances and per-day losses, and the portfolio quality
+in `compare_to_goldens`' format. About 3 min in float64 and 5.5 min in
+float32 on one core:
+
+    JAX_PLATFORMS=cpu python tools/make_torch_goldens.py --multi-input --float32
 """
 
 from __future__ import annotations
@@ -140,7 +162,147 @@ def frontier(grid: str) -> int:
     return 0
 
 
+def multi_input() -> int:
+    from benchmarks import bench_portfolio_e2e as e2e
+    from chip_smoke import MULTI_INPUT_CASES, MULTI_INPUT_TICKER, multi_input_goldens_path
+    from portfoliooptgp_tpu import kernels as jk
+    from portfoliooptgp_tpu import pipelines
+    from portfoliooptgp_tpu.pipelines import walk_forward
+    from portfoliooptgp_tpu.train import batched_lbfgs
+
+    pairs = {"exp": [(jk.Exponential, jk.Exponential)], "poly": [(jk.Polynomial, jk.Exponential)]}
+    fits = []
+    real_model, real_lik = trainer.train_model, trainer.train_likelihood
+    real_fused, real_fast = batched_lbfgs.fit_batched_fused, trainer._fast_default
+
+    def leaves(model):
+        return [np.asarray(x).tolist() for x in jax.tree.leaves(model)]
+
+    def tier_f32(model, X, Y):
+        stacked = jax.tree.map(lambda x: jnp.asarray(x, jnp.float32)[None], model)
+        return gpr.nll_tier(stacked, X.astype(jnp.float32), Y.astype(jnp.float32), fast=True)
+
+    def at_f64_leaves(model, X, Y):
+        """The routed float32 NLL at the float64 golden's leaves of this fit."""
+        f64 = next(ref_fits)
+        m = jax.tree.unflatten(jax.tree.structure(model),
+                               [jnp.asarray(x, jnp.float32) for x in f64["leaves"]])
+        stacked = jax.tree.map(lambda x: x[None], m)
+        return float(gpr.batched_neg_log_marginal_likelihood(stacked, X, Y)[0])
+
+    def record(t, X, Y, restarts=None):
+        losses = None if restarts is None else np.where(
+            np.isfinite(restarts.loss), restarts.loss, np.inf)
+        extra = dict(loss_at_f64_leaves=at_f64_leaves(t.model, X, Y)) if FLOAT32 else {}
+        fits.append(dict(n=int(X.shape[0]), d=int(X.shape[1]), loss=float(t.loss), **extra,
+                         noise_variance=float(t.model.likelihood.variance), mse=float(t.mse),
+                         iters=np.asarray(t.iters).tolist(), tier_f32=tier_f32(t.model, X, Y),
+                         restart_losses=None if losses is None else losses.tolist(),
+                         winner=None if losses is None else int(np.argmin(losses)),
+                         leaves=leaves(t.model)))
+        return t
+
+    def train_model(model, X, Y, **kw):
+        return record(real_model(model, X, Y, **kw), X, Y)
+
+    def train_likelihood(X, Y, kernel, **kw):
+        seen = []
+
+        def fused(*a, **k):
+            out = real_fused(*a, **k)
+            seen.append(out[1])
+            return out
+
+        batched_lbfgs.fit_batched_fused = fused
+        try:
+            t = real_lik(X, Y, kernel, **kw)
+        finally:
+            batched_lbfgs.fit_batched_fused = real_fused
+        return record(t, X, Y, restarts=seen[0])
+
+    def host(x):
+        return np.asarray(x, dtype=float).reshape(-1).tolist()
+
+    if FLOAT32:
+        with open(multi_input_goldens_path()) as fh:
+            goldens64 = json.load(fh)
+    trainer._fast_default = lambda: True
+    trainer.train_model, trainer.train_likelihood = train_model, train_likelihood
+    cases = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        e2e.make_market(root)
+        base = dict(ticker=MULTI_INPUT_TICKER, features=e2e.FEATURES, data_root=root,
+                    threshold=0.30, removal_percentage=0.2, maxiter=200, **e2e.DATES)
+        for name, (step, pair, fixed) in MULTI_INPUT_CASES.items():
+            del fits[:]
+            ref_fits = iter(goldens64["cases"][name]["fits"]) if FLOAT32 else None
+            t = time.perf_counter()
+            mi = pipelines.MultiInputGPR(kernel_pairs=pairs[pair], isFixedLikelihood=fixed,
+                                         **base)
+            out = mi.run_step_4(batched=False) if step == 4 else getattr(
+                mi, f"run_step_{step}")()
+            case = dict(step=step, pair=pair, fixed=fixed, fits=list(fits),
+                        seconds=time.perf_counter() - t)
+            if step == 1:
+                case.update(kept=out["kept_features"], f_mean=host(out["f_mean"]),
+                            f_var=host(out["f_var"]), mse=out["mse"])
+            elif step == 2:
+                case.update(mse_all=out["mse_all"], mse_removed=out["mse_removed"])
+            else:
+                case.update(f_mean=host(out.f_mean), f_var=host(out.f_var),
+                            actual=host(out.actual))
+            cases[name] = case
+            print(name, f"{case['seconds']:.1f} s", [
+                (f["n"], f["tier_f32"], round(f["loss"], 6), f["winner"]) for f in fits],
+                flush=True)
+
+        # the 5-asset workflow, step 4 with the Polynomial pair and trained likelihood
+        walks = []
+        real_walk = walk_forward.batched_walk_forward
+
+        def walk(*a, **k):
+            res = real_walk(*a, **k)
+            walks.append(dict(losses=host(res.losses)))
+            return res
+
+        class PolyTrained(pipelines.MultiInputGPR):
+            def __init__(self, **kw):
+                kw.update(kernel_pairs=pairs["poly"], isFixedLikelihood=False)
+                super().__init__(**kw)
+
+            def run_step_4(self, batched=True):
+                p = super().run_step_4(batched)
+                walks[-1].update(f_mean=host(p.f_mean), f_var=host(p.f_var))
+                return p
+
+        real_cls = pipelines.MultiInputGPR
+        walk_forward.batched_walk_forward, pipelines.MultiInputGPR = walk, PolyTrained
+        try:
+            wf_seconds, quality = e2e.run_workflow(root)
+        finally:
+            walk_forward.batched_walk_forward, pipelines.MultiInputGPR = real_walk, real_cls
+    trainer.train_model, trainer.train_likelihood = real_model, real_lik
+    trainer._fast_default = real_fast
+    out = dict(
+        source=(f"JAX MultiInputGPR, {'float32' if FLOAT32 else 'float64'}, CPU, "
+                "trainer._fast_default patched to True (tools/make_torch_goldens.py "
+                "--multi-input)"),
+        ticker=MULTI_INPUT_TICKER, market_seed=7, dates=e2e.DATES, maxiter=200,
+        seconds=time.perf_counter() - t0, cases=cases,
+        workflow=dict(assets=e2e.ASSETS, seconds=wf_seconds, step4=walks,
+                      strategies=quality))
+    path = multi_input_goldens_path(FLOAT32)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as fh:
+        json.dump(out, fh, indent=1)
+    print("workflow", f"{wf_seconds:.1f} s", json.dumps(quality), flush=True)
+    return 0
+
+
 def main() -> int:
+    if "--multi-input" in sys.argv[1:]:
+        return multi_input()
     if "--frontier" in sys.argv[1:]:
         return frontier(sys.argv[sys.argv.index("--frontier") + 1])
     menus = {}
