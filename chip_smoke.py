@@ -64,7 +64,20 @@ Phases, each fatal on failure:
      tests/goldens_torch/multi_input_poly*.json (the JAX package's float64
      and float32 runs, written by tools/make_torch_goldens.py
      --multi-input) by `compare_multi_input`, with the launch counts of
-     each run (`phase_multi_input`).
+     each run (`phase_multi_input`);
+ 10. the SVGP slice: hold both gram kernels (`csrc/svgp_gram.cu`) against
+     their plain versions in float32 for four families, isotropic and ARD,
+     at (M, B) up to (128, 8192) on the 16k-day scale with a weight-0 tail,
+     and `gaussian_elbo_gram_fused(use_pallas=True)`'s value and gradients
+     against `gaussian_elbo_gram` and against CPU copies; time each kernel
+     beside its plain version, the PyTorch chain and its bound
+     (`phase_svgp_checks`); then the sparse-variational workflow at
+     full-AAPL scale (bench.py's SVGP problem, N = 10,963, M = 128, batch
+     2048) on the card, cold then warm, by the trainer's default route and
+     by the kernel route, against tests/goldens_torch/svgp_full_aapl*.json
+     (the JAX package's float64 and float32 runs, written by
+     tools/make_torch_goldens.py --svgp) by `compare_svgp`, with the steps
+     per second of each route and the device's busy share (`phase_svgp`).
 Then it prints the card's name and power limit, one JSON line describing
 every kernel, and the last line {"ok": true, "device": {...}}.
 
@@ -563,15 +576,17 @@ def _fit_outputs(name, outs, g64, g32):
 
 
 def _launch_counts():
-    from portfoliooptgp_tpu_torch.ops import blocked_nll, nll, stationary_nll
+    from portfoliooptgp_tpu_torch.ops import blocked_nll, nll, stationary_nll, svgp_gram
 
-    return {**stationary_nll.LAUNCHES, **blocked_nll.LAUNCHES, **nll.LAUNCHES}
+    return {**stationary_nll.LAUNCHES, **blocked_nll.LAUNCHES, **nll.LAUNCHES,
+            **svgp_gram.LAUNCHES}
 
 
 def _reset_launch_counts():
-    from portfoliooptgp_tpu_torch.ops import blocked_nll, nll, stationary_nll
+    from portfoliooptgp_tpu_torch.ops import blocked_nll, nll, stationary_nll, svgp_gram
 
-    for counts in (stationary_nll.LAUNCHES, blocked_nll.LAUNCHES, nll.LAUNCHES):
+    for counts in (stationary_nll.LAUNCHES, blocked_nll.LAUNCHES, nll.LAUNCHES,
+                   svgp_gram.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -842,6 +857,31 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 50, stream=None) -> float:
+    """Mean device time of fn()'s kernels in ms: fn is captured once in a
+    CUDA graph on `stream` (a new side stream by default, after 3 warm-up
+    calls there) and the graph replayed `reps` times between CUDA events.
+    No host work is timed: no allocation, argument check or launch call."""
+    side = stream if stream is not None else torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def nll_bound_ms(B, N, J, JD, masked, with_inverse):
     """Least time for the fused NLL on an H100: the larger of the bytes it
     must move (inputs read once, outputs written once) over HBM bandwidth
@@ -1009,6 +1049,307 @@ def device_busy(fn, report_name, kernel="stationary_nll"):
         for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:40]:
             fh.write(f"{t / 1e6:.3f}\t{n}\t{name[:160]}\n")
     return dict(wall_s=wall, device_s=device_ns / 1e9, kernel_s=kernel_ns / 1e9)
+
+
+# The sparse-variational workflow at full-AAPL scale: bench.py's SVGP problem
+# (`bench.py:_svgp_problem`, copied; tests/test_torch_svgp_goldens.py holds the
+# copy equal to it) trained as `train_svgp_minibatched` trains it.
+SVGP_N, SVGP_M, SVGP_BATCH = 10_963, 128, 2048
+SVGP_TRAIN = dict(batch_size=SVGP_BATCH, num_epochs=10, seed=0, inner_steps=8)
+SVGP_GRID = 64  # predict_f points on [0, max X]
+SVGP_ROUTES = ("xla", "kernel")  # the trainer's default batch phase; use_pallas=True
+
+
+def svgp_problem():
+    rng = np.random.default_rng(0)
+    X = np.sort(rng.uniform(0, 44 * 365, size=(SVGP_N, 1))).astype(np.float32)
+    Y = (np.sin(X / 200.0) + 0.1 * rng.normal(size=(SVGP_N, 1))).astype(np.float32)
+    Z = np.linspace(0, X.max(), SVGP_M)[:, None].astype(np.float32)
+    return X, Y, Z
+
+
+def svgp_goldens_path(float32: bool = False) -> str:
+    return os.path.join(REPO, "tests", "goldens_torch",
+                        f"svgp_full_aapl{'_f32' if float32 else ''}.json")
+
+
+def svgp_model(leaves, device=DEVICE, dtype=torch.float32):
+    """The port's SVGP of the problem (SE, Gaussian, Zero mean, M = 128)
+    with the given leaves (flat lists in `jax.tree.leaves` order)."""
+    from portfoliooptgp_tpu_torch import kernels as tk
+    from portfoliooptgp_tpu_torch.models.svgp import SVGP
+    from portfoliooptgp_tpu_torch.params import tree_leaves, tree_replace
+
+    o = dict(device=device, dtype=dtype)
+    template = SVGP.create(tk.SquaredExponential.create(1.0, 300.0, **o),
+                           np.zeros((SVGP_M, 1)), **o)
+    return tree_replace(template, [torch.tensor(np.reshape(x, t.shape), **o)
+                                   for x, t in zip(leaves, tree_leaves(template))])
+
+
+def _svgp_flat(model):
+    from portfoliooptgp_tpu_torch.params import tree_leaves
+
+    return [x.detach().double().cpu().reshape(-1).tolist() for x in tree_leaves(model)]
+
+
+def make_kernel_route_step(model, num_data, freeze_likelihood=True):
+    """Route (ii)'s Adam step: `make_elbo_train_step`'s one-batch step with
+    the loss on `gaussian_elbo_gram_fused(..., use_pallas=True)` (the trainer
+    has no such switch, as the JAX trainer has none). Returns (state, step)."""
+    from portfoliooptgp_tpu_torch.models import svgp as svgp_mod
+    from portfoliooptgp_tpu_torch.parallel.elbo_sharded import TrainState
+    from portfoliooptgp_tpu_torch.train.lbfgs import freeze_leaves
+    from portfoliooptgp_tpu_torch.train.optim import Adam, make_step
+
+    def loss(m, Xb, Yb, wb):
+        return -svgp_mod.gaussian_elbo_gram_fused(m, Xb, Yb, weights=wb, num_data=num_data,
+                                                  use_pallas=True)
+
+    opt = Adam(1e-2)
+    frozen = freeze_leaves(model, likelihood=True) if freeze_likelihood else None
+    return TrainState(model, opt.init(model)), make_step(loss, opt, frozen)
+
+
+def train_kernel_route(model0, X, Y, device=DEVICE, dtype=torch.float32):
+    """Route (ii) over `MinibatchIterator(**SVGP_TRAIN)` in groups, skipping
+    the all-zero batches as the trainer does: (model, real steps, last loss)."""
+    from portfoliooptgp_tpu_torch.data.iterator import MinibatchIterator
+    from portfoliooptgp_tpu_torch.parallel.elbo_sharded import group_step
+
+    state, step = make_kernel_route_step(model0, X.shape[0])
+    step = group_step(step)
+    with MinibatchIterator(X, Y, **SVGP_TRAIN, device=device, dtype=dtype) as it:
+        iters = SVGP_TRAIN["num_epochs"] * it.steps_per_epoch()
+        for Xs, Ys, ws in it:
+            state, loss = step(state, Xs, Ys, ws)
+    return state.model, iters, loss
+
+
+def run_svgp(goldens32, device=DEVICE, dtype=torch.float32):
+    """Both batch-phase routes of the SVGP workflow on bench.py's problem:
+    (i) `train_svgp_minibatched(**SVGP_TRAIN)`, the trainer's default
+    (torch batch phase); (ii) the same iterator stream, Adam and frozen
+    likelihood through `gaussian_elbo_gram_fused(use_pallas=True)`, with its
+    all-zero tail batches skipped likewise. Returns the quality dict of
+    `compare_svgp`: per route the seconds, real steps, the gram kernels'
+    launches, the full-data ELBO at the start and at the end, the route's
+    ELBO on the first batch at the start (and, route (ii), its gradient),
+    the final leaves, `predict_f` on SVGP_GRID points, and the ELBOs
+    replayed at JAX float32's final leaves of the same route."""
+    from portfoliooptgp_tpu_torch.models import svgp as svgp_mod
+    from portfoliooptgp_tpu_torch.params import tree_leaves, tree_replace
+    from portfoliooptgp_tpu_torch.train import svgp_trainer
+
+    o = dict(device=device, dtype=dtype)
+    Xn, Yn, _ = svgp_problem()
+    X, Y = torch.tensor(Xn, **o), torch.tensor(Yn, **o)
+    Xb, Yb = X[:SVGP_BATCH], Y[:SVGP_BATCH]
+    wb = torch.ones((SVGP_BATCH,), **o)
+    grid = torch.tensor(np.linspace(0, Xn.max(), SVGP_GRID)[:, None], **o)
+    model0 = svgp_model(goldens32["leaves_start"], device, dtype)
+
+    def full_elbo(m):
+        with torch.no_grad():
+            return float(svgp_mod.gaussian_elbo_gram(m, X, Y))
+
+    def batch_elbo(m, route, grad=False):
+        leaves = [x.detach().requires_grad_(grad) for x in tree_leaves(m)]
+        with torch.enable_grad():
+            v = svgp_mod.gaussian_elbo_gram_fused(tree_replace(m, leaves), Xb, Yb, weights=wb,
+                                                  num_data=SVGP_N,
+                                                  use_pallas=route == "kernel")
+            g = torch.autograd.grad(v, leaves) if grad else None
+        return float(v.detach()), g
+
+    q = dict(device=torch.device(device).type, routes={})
+    for route in SVGP_ROUTES:
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        if route == "xla":
+            res = svgp_trainer.train_svgp_minibatched(model0, Xn, Yn, **SVGP_TRAIN)
+            model, iters, train_elbo = res.model, res.iters, res.elbo
+        else:
+            model, iters, loss = train_kernel_route(model0, Xn, Yn, device, dtype)
+            train_elbo = -float(loss)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in _launch_counts().items() if k.startswith("svgp_gram")}
+        g32 = goldens32["routes"][route]
+        v0, g0 = batch_elbo(model0, route, grad=route == "kernel")
+        at32 = svgp_model(g32["leaves_final"], device, dtype)
+        with torch.no_grad():
+            mean, var = svgp_mod.predict_f(model, grid)
+            mean32, var32 = svgp_mod.predict_f(at32, grid)
+        q["routes"][route] = dict(
+            seconds=seconds, iters=int(iters), launches=launches, train_elbo=float(train_elbo),
+            use_pallas=route == "kernel", eligible=svgp_mod.svgp_gram_fused_supported(model0, Xb),
+            elbo_start=full_elbo(model0), elbo_final=full_elbo(model),
+            batch_elbo_start=v0,
+            batch_grads_start=None if g0 is None else [
+                x.double().cpu().reshape(-1).tolist() for x in g0],
+            leaves_final=_svgp_flat(model),
+            f_mean=mean.double().cpu().reshape(-1).tolist(),
+            f_var=var.double().cpu().reshape(-1).tolist(),
+            replay=dict(elbo_final=full_elbo(at32),
+                        batch_elbo_final=batch_elbo(at32, route)[0],
+                        f_mean=mean32.double().cpu().reshape(-1).tolist(),
+                        f_var=var32.double().cpu().reshape(-1).tolist()))
+    return q
+
+
+SVGP_ELBO_RTOL = 1e-4  # an ELBO at the same leaves as JAX float32's, same route
+SVGP_GRAD_ATOL = 2e-2  # route (ii)'s gradient at the start, of its largest entry
+SVGP_REPLAY_MEAN_ATOL = 1e-3  # predict_f at JAX float32's leaves: means, of max |mean|
+SVGP_REPLAY_VAR_ATOL = 2e-3   # ... variances, of max variance
+SVGP_SPREAD = 4.0  # the trained outcome against float64: this many times JAX's float32 spread
+# The trained outcome against JAX float32's run of the same route: this many
+# times JAX's own float32 route-to-route difference (its two routes differ
+# only in how the batch phase rounds, ~1e-4), and never less than one float32
+# rounding of the quantity's largest value (a frozen leaf does not move).
+# The port's runs of either route reach at most 0.34 of this limit on the
+# CPU and on an H100 (PERF.md, PR 7); a kernel route trained on a Z̄ that is
+# 0.9 of the right one reaches 7 times it on Z
+# (tests/test_torch_svgp_goldens.py).
+SVGP_ROUTE_SPREAD = 4.0
+
+
+def _svgp_outcome(r):
+    """The trained outcome of a run (quality dict or golden route): a list
+    of (quantity, float64 array), each final leaf, `predict_f`'s mean and
+    variance and the final full-data ELBO."""
+    return ([(f"leaf {k}", x) for k, x in enumerate(r["leaves_final"])]
+            + [("f_mean", r["f_mean"]), ("f_var", r["f_var"]),
+               ("final full ELBO", [r["elbo_final"]])])
+
+
+def svgp_route_limits(goldens32):
+    """Per quantity of `_svgp_outcome`, the limit on a float32 run's
+    distance from JAX float32's run of the same route: SVGP_ROUTE_SPREAD
+    times the larger of JAX's two float32 routes' difference and one
+    float32 rounding (2⁻²³ of the largest value)."""
+    a, b = (_svgp_outcome(goldens32["routes"][r]) for r in SVGP_ROUTES)
+    eps = float(np.finfo(np.float32).eps)
+    lims = []
+    for (_, x), (_, y) in zip(a, b):
+        x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+        lims.append(SVGP_ROUTE_SPREAD * max(np.abs(x - y).max(), eps * np.abs(y).max()))
+    return lims
+
+
+def svgp_route_distances(q, goldens32):
+    """{route: [(quantity, max |run − JAX float32's run of the route|,
+    limit)]} for a run_svgp quality dict; a quantity of the wrong shape or
+    with non-finite values, or a missing one, gets an infinite distance."""
+    lims = svgp_route_limits(goldens32)
+    out = {}
+    for route in SVGP_ROUTES:
+        mine = dict(_svgp_outcome(q["routes"][route]))
+        rows = []
+        for (name, ref), lim in zip(_svgp_outcome(goldens32["routes"][route]), lims):
+            x, ref = np.asarray(mine.get(name, []), np.float64), np.asarray(ref, np.float64)
+            ok = x.shape == ref.shape and np.all(np.isfinite(x))
+            rows.append((name, float(np.abs(x - ref).max()) if ok else float("inf"), lim))
+        out[route] = rows
+    return out
+
+
+def compare_svgp(q, goldens, goldens32):
+    """(ok, list of failures) of a run_svgp quality dict against the JAX
+    float64 goldens (route (i), the only route in float64) and JAX's float32
+    run of each route:
+    - the route: the model eligible for the gram kernels, route (ii) asking
+      for them (use_pallas) and route (i) not, and on the card the kernels
+      launched once per real step in route (ii) (the 4 all-zero tail batches
+      none) and never in route (i);
+    - the real steps (60);
+    - the route's ELBO on the first batch and the full-data ELBO at the
+      start, and both replayed at JAX float32's final leaves of the route,
+      within SVGP_ELBO_RTOL of JAX float32's; route (ii)'s gradient at the
+      start within SVGP_GRAD_ATOL; `predict_f` at those leaves within
+      SVGP_REPLAY_MEAN_ATOL / SVGP_REPLAY_VAR_ATOL of JAX float32's;
+    - the trained outcome (each final leaf, `predict_f`'s mean and
+      variance, the final full-data ELBO) within SVGP_SPREAD times JAX's
+      own float32-to-float64 spread of the float64 golden, and within
+      `svgp_route_limits` of JAX float32's run of the same route (the same
+      batches and Adam)."""
+    bad = []
+    g64 = goldens["routes"]["xla"]
+    for route, rows in svgp_route_distances(q, goldens32).items():
+        for name, err, lim in rows:
+            if not err <= lim:
+                bad.append(f"route {route}: {name}: |err| {err:.3g} from JAX float32's run of "
+                           f"the route > {lim:.3g}")
+    for route in SVGP_ROUTES:
+        r, g32 = q["routes"][route], goldens32["routes"][route]
+        tag = f"route {route}"
+        if not r["eligible"] or r["use_pallas"] != (route == "kernel"):
+            bad.append(f"{tag}: eligible {r['eligible']}, use_pallas {r['use_pallas']}")
+        fwd, bwd = r["launches"]["svgp_gram_fwd"], r["launches"]["svgp_gram_bwd"]
+        want = r["iters"] if (route == "kernel" and q["device"] == "cuda") else 0
+        if fwd != want or bwd != want:
+            bad.append(f"{tag}: gram launches fwd {fwd}, bwd {bwd}, expected {want} each")
+        if r["iters"] != g32["iters"]:
+            bad.append(f"{tag}: {r['iters']} steps != {g32['iters']}")
+        for name, x, ref in (
+                ("full ELBO at the start", r["elbo_start"], g32["elbo_start"]),
+                ("batch ELBO at the start", r["batch_elbo_start"], g32["batch_elbo_start"]),
+                ("full ELBO at JAX's final leaves", r["replay"]["elbo_final"],
+                 g32["elbo_final"]),
+                ("batch ELBO at JAX's final leaves", r["replay"]["batch_elbo_final"],
+                 g32["batch_elbo_final"])):
+            if not abs(x - ref) <= SVGP_ELBO_RTOL * abs(ref):
+                bad.append(f"{tag}: {name} {x:.8g} vs {ref:.8g}")
+        for key, tol in (("f_mean", SVGP_REPLAY_MEAN_ATOL), ("f_var", SVGP_REPLAY_VAR_ATOL)):
+            ref = np.asarray(g32[key])
+            err = np.abs(np.asarray(r["replay"][key]) - ref).max() / np.abs(ref).max()
+            if not err <= tol:
+                bad.append(f"{tag}: {key} at JAX's final leaves, err {err:.3g} of max > {tol}")
+        if g32["batch_grads_start"] is not None:
+            for k, (g, ref) in enumerate(zip(r["batch_grads_start"], g32["batch_grads_start"])):
+                ref = np.asarray(ref)
+                err = np.abs(np.asarray(g) - ref).max() / max(np.abs(ref).max(), 1.0)
+                if not err <= SVGP_GRAD_ATOL:
+                    bad.append(f"{tag}: gradient leaf {k} at the start, normalized err {err:.3g}")
+        mine = dict(_svgp_outcome(r))
+        for (name, ref32), (_, ref64) in zip(_svgp_outcome(g32), _svgp_outcome(g64)):
+            x, ref32, ref64 = (np.asarray(a, np.float64)
+                               for a in (mine.get(name, []), ref32, ref64))
+            if x.shape != ref64.shape or not np.all(np.isfinite(x)):
+                bad.append(f"{tag}: {name}: shape {x.shape} or non-finite values")
+                continue
+            spread = np.abs(ref32 - ref64).max()
+            lim = SVGP_SPREAD * spread
+            err = np.abs(x - ref64).max()
+            if not err <= lim:
+                bad.append(f"{tag}: {name}: |err| {err:.3g} against the float64 golden > "
+                           f"{lim:.3g} (JAX float32 spread {spread:.3g})")
+    return not bad, bad
+
+
+GRAM_SHAPES = ((16, 96), (64, 512), (128, 2048), (128, 8192))  # (M, B) of phase 10a
+GRAM_VALUE_RTOL = 2e-4  # G and sq, of their largest entry (tests/test_svgp_gram_fused.py)
+GRAM_GRAD_ATOL = 3e-3   # each gradient, of its largest entry
+GRAM_GRAD_ATOL_ARD_MATERN = 5e-3
+
+
+def gram_operands(M, B, D, seed, device=DEVICE, dtype=torch.float32):
+    """Operands of the gram kernels at the benchmark's scale: X on [0, 16060]
+    days, Z spread over the same range, ℓ from 200 to 500 days, a weight-0
+    tail of the same share as the benchmark's last batch (1,325 of 2,048
+    rows), random t, y, Ḡ and s̄q. Returns (Z, X, y, w, t, v, s, Ḡ, s̄q) with
+    s (1,) when D = 1 (one shared scale) and (1, D) otherwise."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(0, 16060, (B, D))
+    Z = np.sort(rng.uniform(0, 16060, (M, D)), axis=0)
+    w = np.ones(B)
+    w[B - (B * 1325) // 2048:] = 0.0
+    ell = np.linspace(200.0, 500.0, D) if D > 1 else np.array([300.0])
+    s = (1.0 / ell ** 2).reshape((1,) if D == 1 else (1, D))
+    arrays = (Z, X, rng.normal(size=B), w, rng.normal(size=M) * 0.5, np.array([1.3]), s,
+              rng.normal(size=(M, M)), np.array(rng.normal()))
+    return tuple(torch.tensor(a, dtype=dtype, device=device) for a in arrays)
 
 
 # -- phases -----------------------------------------------------------------
@@ -1834,6 +2175,266 @@ def phase_multi_input():
                 cold_s=runs[0][1], warm_s=runs[1][1])
 
 
+def gram_bound_ms(M, B, D, backward):
+    """Least time for one gram kernel call on an H100: the larger of the
+    bytes it must move over HBM bandwidth and its fp32 operations over the
+    fp32 peak. Bytes: Z (M·D), X (B·D), y, w (B each), t (M), v, s (D) read
+    once, G (M²) and sq written once; the backward also reads Ḡ (M²) and
+    s̄q and writes Z̄ (M·D), ȳ (B), t̄ (M), v̄, s̄ (D). Operations per (m, b):
+    3D + 2 to build v φ(u) and 2 for m = tᵀKuf. The forward adds G, which
+    is symmetric, so only its lower triangle: M(M + 1)/2 entries of 2B
+    operations, M(M + 1)B in all, and MB to apply w. The backward adds
+    (Ḡ + Ḡᵀ)Kuf, a full product of 2M²B, with M² to form Ḡ + Ḡᵀ, and per
+    (m, b) 4 for K̄uf's epilogue, 3 for W2, 2 each for v̄ and t̄ and 5D for Z̄
+    and s̄."""
+    inputs = M * D + B * D + 2 * B + M + 1 + D
+    flops = (3 * D + 2 + 2) * M * B
+    if backward:
+        nbytes = 4 * (inputs + M * M + 1 + M * D + B + M + 1 + D)
+        flops += 2 * M * M * B + M * M + (4 + 3 + 2 + 2 + 5 * D) * M * B
+    else:
+        nbytes = 4 * (inputs + M * M + 1)
+        flops += M * (M + 1) * B + M * B
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _rel_err(got, want):
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def phase_svgp_checks():
+    """Phase 10a–c. (a) Both gram kernels against their plain versions on the
+    card in float32, four families × {isotropic D = 1, ARD D = 3} × (M, B) in
+    GRAM_SHAPES, X on [0, 16060] days with a weight-0 tail and random Ḡ, s̄q:
+    G and sq within GRAM_VALUE_RTOL, Z̄, ȳ, t̄, v̄, s̄ within GRAM_GRAD_ATOL
+    (GRAM_GRAD_ATOL_ARD_MATERN for ARD Matern), each of its largest entry.
+    (b) Value and gradient of `gaussian_elbo_gram_fused(use_pallas=True)`
+    against `gaussian_elbo_gram` on the card and against the same call on
+    CPU copies (phase 2's tolerances, tools/smoke_tpu.py's), on smoke_tpu's
+    problem and on the benchmark's first batch at JAX float32's trained
+    leaves. (c) Times at (M, B, D) = (128, 2048, 1): each kernel, its plain
+    version and the PyTorch chain (broadcast differences, torch.matmul,
+    autograd) as the device time of a CUDA-graph replay (`graph_ms`, no host
+    work), each kernel's eager wrapper call as well (`cuda_ms`: allocation,
+    checks and the ctypes launch included), the bound, and one eager
+    value+grad of each route."""
+    from portfoliooptgp_tpu_torch import kernels as tk
+    from portfoliooptgp_tpu_torch.models import svgp as svgp_mod
+    from portfoliooptgp_tpu_torch.models.likelihoods import Gaussian
+    from portfoliooptgp_tpu_torch.ops import svgp_gram as sg
+    from portfoliooptgp_tpu_torch.params import tree_leaves, tree_replace
+
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for i, family in enumerate(sg.FAMILIES):
+        for D in (1, 3):
+            errs = [0.0, 0.0]
+            for M, B in GRAM_SHAPES:
+                ops = gram_operands(M, B, D, seed=100 * i + 10 * D + M + B)
+                G, sq = sg.gram_fwd_cuda(*ops[:7], family)
+                bars = sg.gram_bwd_cuda(*ops[:7], family, *ops[7:])
+                torch.cuda.synchronize()
+                Gp, sqp = sg.gram_fwd_plain(*ops[:7], family)
+                barsp = sg.gram_bwd_plain(*ops[:7], family, *ops[7:])
+                gtol = GRAM_GRAD_ATOL_ARD_MATERN if (D > 1 and family != "se") else GRAM_GRAD_ATOL
+                for name, a, b, tol, slot in (
+                        ("G", G, Gp, GRAM_VALUE_RTOL, 0), ("sq", sq, sqp, GRAM_VALUE_RTOL, 0),
+                        *[(n, a, b, gtol, 1) for n, a, b in
+                          zip(("Zbar", "ybar", "tbar", "vbar", "sbar"), bars, barsp)]):
+                    err = _rel_err(a, b)
+                    if not (torch.all(torch.isfinite(a)) and err <= tol):
+                        raise AssertionError(f"gram {family} D={D} M={M} B={B} {name}: "
+                                             f"err {err:.3e} > {tol}")
+                    errs[slot] = max(errs[slot], err)
+                    key = "fwd" if slot == 0 else "bwd"
+                    worst[key] = max(worst[key], _max_err(a, b))
+                if not torch.all(bars[1][int(ops[3].sum()):] == 0):
+                    raise AssertionError(f"gram {family} D={D}: weight-0 rows got a ȳ")
+            print(f"check gram {family} D={D}: kernels match plain at (M, B) in {GRAM_SHAPES}; "
+                  f"worst forward err {errs[0]:.3e}, backward {errs[1]:.3e}", flush=True)
+
+    rng = np.random.default_rng(12)
+    o = dict(device=DEVICE, dtype=torch.float32)
+    n, m = 512, 64
+    Xs = np.sort(rng.uniform(0, 30, (n, 1)), axis=0)
+    smoke = svgp_mod.SVGP.create(
+        tk.SquaredExponential.create(1.3, 4.0, **o), np.linspace(0, 30, m)[:, None],
+        likelihood=Gaussian.create(0.05, **o), **o)
+    smoke = tree_replace(smoke, tree_leaves(smoke)[:4] + [
+        torch.tensor(rng.normal(size=(m, 1)), **o),
+        torch.tensor(np.tril(rng.normal(size=(1, m, m)) * 0.2) + np.eye(m), **o)])
+    g32 = json.load(open(svgp_goldens_path(True)))["routes"]["kernel"]
+    Xn, Yn, _ = svgp_problem()
+    problems = {
+        "smoke_tpu N=512 M=64": (smoke, torch.tensor(Xs, **o),
+                                 torch.tensor(np.sin(Xs) + 0.1 * rng.normal(size=(n, 1)), **o),
+                                 n),
+        "full-AAPL first batch": (svgp_model(g32["leaves_final"]),
+                                  torch.tensor(Xn[:SVGP_BATCH], **o),
+                                  torch.tensor(Yn[:SVGP_BATCH], **o), SVGP_N)}
+    for name, (model, X, Y, num_data) in problems.items():
+        outs = []
+        for dev, use_pallas in ((DEVICE, True), (DEVICE, None), ("cpu", True)):
+            leaves = [x.detach().to(dev).requires_grad_(True) for x in tree_leaves(model)]
+            mm = tree_replace(model, leaves)
+            Xd, Yd = X.to(dev), Y.to(dev)
+            if use_pallas is None:
+                value = svgp_mod.gaussian_elbo_gram(mm, Xd, Yd, num_data=num_data)
+            else:
+                before = dict(sg.LAUNCHES)
+                value = svgp_mod.gaussian_elbo_gram_fused(mm, Xd, Yd, num_data=num_data,
+                                                          use_pallas=True)
+            grads = torch.autograd.grad(value, leaves, allow_unused=True)
+            grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+            if dev == DEVICE and use_pallas and sg.LAUNCHES["svgp_gram_bwd"] != \
+                    before["svgp_gram_bwd"] + 1:
+                raise AssertionError(f"{name}: use_pallas=True launched no gram kernel pair")
+            outs.append((value.detach().reshape(1).to(DEVICE), [g.to(DEVICE) for g in grads]))
+        torch.cuda.synchronize()
+        for other, label in ((outs[1], "gaussian_elbo_gram on the card"),
+                             (outs[2], "the same call on CPU copies")):
+            verr = _check_values(f"{name} vs {label}", outs[0][0], other[0])
+            gerr = _check_grads(f"{name} vs {label}", outs[0][1], other[1])
+            print(f"check svgp use_pallas {name} vs {label}: value rel err {verr:.3e}, "
+                  f"grad normalized err {gerr:.3e}", flush=True)
+
+    M, B, D = SVGP_M, SVGP_BATCH, 1
+    Z, X, y, w, t, v, s, Gbar, sqbar = gram_operands(M, B, D, seed=77)
+
+    def chain(Z, y, t, v, s):
+        diff = Z[:, None, :] - X[None, :, :]
+        K = v * torch.exp(-0.5 * torch.sum(diff * diff * s.reshape(-1), dim=-1))
+        e = y - t @ K
+        return (K * w) @ K.T, torch.sum(w * e * e)
+
+    def fwd():
+        return sg.gram_fwd_cuda(Z, X, y, w, t, v, s, "se")
+
+    def bwd():
+        return sg.gram_bwd_cuda(Z, X, y, w, t, v, s, "se", Gbar, sqbar)
+
+    leaves = [a.clone().requires_grad_(True) for a in (Z, y, t, v, s)]
+    side = torch.cuda.Stream()  # the chain's forward runs there, so its backward is captured
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = chain(*leaves)
+    times = {}
+    with torch.no_grad():
+        times["ms_fwd"] = graph_ms(fwd)
+        times["ms_bwd"] = graph_ms(bwd)
+        times["eager_ms_fwd"] = cuda_ms(fwd)
+        times["eager_ms_bwd"] = cuda_ms(bwd)
+        times["plain_ms_fwd"] = graph_ms(lambda: sg.gram_fwd_plain(Z, X, y, w, t, v, s, "se"))
+        times["plain_ms_bwd"] = graph_ms(lambda: sg.gram_bwd_plain(Z, X, y, w, t, v, s, "se",
+                                                                   Gbar, sqbar))
+        times["library_ms_fwd"] = graph_ms(lambda: chain(Z, y, t, v, s))
+    times["library_ms_bwd"] = graph_ms(lambda: torch.autograd.grad(
+        out, leaves, (Gbar, sqbar), retain_graph=True), stream=side)
+    times["bound_fwd"] = gram_bound_ms(M, B, D, False)
+    times["bound_bwd"] = gram_bound_ms(M, B, D, True)
+    model = svgp_model(g32["leaves_final"])
+    Xb, Yb = torch.tensor(Xn[:B], **o), torch.tensor(Yn[:B], **o)
+    for route in SVGP_ROUTES:
+        def value_grad():
+            ls = [x.detach().requires_grad_(True) for x in tree_leaves(model)]
+            val = svgp_mod.gaussian_elbo_gram_fused(tree_replace(model, ls), Xb, Yb,
+                                                    num_data=SVGP_N, use_pallas=route == "kernel")
+            return torch.autograd.grad(val, ls, allow_unused=True)
+        times[f"value_grad_ms_{route}"] = cuda_ms(value_grad)
+    print(f"phase 10 gram (M, B, D) = ({M}, {B}, {D}), device times of CUDA-graph replays: "
+          f"forward kernel {times['ms_fwd']:.4f} ms (eager wrapper call "
+          f"{times['eager_ms_fwd']:.4f} ms), plain {times['plain_ms_fwd']:.4f} ms, torch chain "
+          f"{times['library_ms_fwd']:.4f} ms, bound {times['bound_fwd'][0]:.6f} ms "
+          f"({times['bound_fwd'][1]}); backward kernel {times['ms_bwd']:.4f} ms (eager wrapper "
+          f"call {times['eager_ms_bwd']:.4f} ms), plain {times['plain_ms_bwd']:.4f} ms, autograd "
+          f"{times['library_ms_bwd']:.4f} ms, bound {times['bound_bwd'][0]:.6f} ms "
+          f"({times['bound_bwd'][1]}); value+grad of the ELBO (eager): route (i) torch "
+          f"{times['value_grad_ms_xla']:.4f} ms, route (ii) kernels "
+          f"{times['value_grad_ms_kernel']:.4f} ms", flush=True)
+    return dict(max_abs_err=worst, times=times)
+
+
+def _svgp_report(label, q):
+    for route, r in q["routes"].items():
+        print(f"phase 10 svgp f32 {label} route {route}: {r['seconds']:.2f} s for {r['iters']} "
+              f"steps, ELBO {r['elbo_start']:.6g} -> {r['elbo_final']:.6g} (full data), "
+              f"launches {json.dumps(r['launches'])}", flush=True)
+
+
+def steps_per_s(route, model, steps=200):
+    """Adam train steps per second on the fixed first batch (bench.py's
+    `svgp_elbo_train_steps_per_s` unit: weights 1, nothing frozen), route
+    (i) through `make_elbo_train_step`, route (ii) through the gram kernels;
+    10 warm-up steps, then `steps` timed ones ending in a synchronize."""
+    from portfoliooptgp_tpu_torch.parallel import elbo_sharded
+
+    Xn, Yn, _ = svgp_problem()
+    o = dict(device=DEVICE, dtype=torch.float32)
+    Xb, Yb = torch.tensor(Xn[:SVGP_BATCH], **o), torch.tensor(Yn[:SVGP_BATCH], **o)
+    wb = torch.ones((SVGP_BATCH,), **o)
+    if route == "xla":
+        init_fn, step = elbo_sharded.make_elbo_train_step(num_data=SVGP_N)
+        state = init_fn(model)
+    else:
+        state, step = make_kernel_route_step(model, SVGP_N, freeze_likelihood=False)
+    for _ in range(10):
+        state, _ = step(state, Xb, Yb, wb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, loss = step(state, Xb, Yb, wb)
+    torch.cuda.synchronize()
+    rate = steps / (time.perf_counter() - t0)
+    if not np.isfinite(float(loss)):
+        raise AssertionError(f"route {route}: non-finite loss after the timed steps")
+    return rate
+
+
+def phase_svgp():
+    """Phase 10d. The SVGP workflow at full-AAPL scale on the card in
+    float32, cold then warm, both routes (`run_svgp`), each against JAX's
+    runs of the same route in tests/goldens_torch/svgp_full_aapl*.json by
+    `compare_svgp` (launch counts included: 60 of each gram kernel in route
+    (ii), none in route (i)); then the steps per second of each route over
+    200 warm steps on the first batch, and route (ii)'s training once more
+    under the profiler for the device's busy share."""
+    with open(svgp_goldens_path()) as fh:
+        goldens = json.load(fh)
+    with open(svgp_goldens_path(True)) as fh:
+        goldens32 = json.load(fh)
+    runs = []
+    for label in ("cold", "warm"):
+        q = run_svgp(goldens32, DEVICE)
+        _svgp_report(label, q)
+        ok, bad = compare_svgp(q, goldens, goldens32)
+        if not ok:
+            raise AssertionError(f"{label} SVGP run does not match the goldens: {bad}")
+        runs.append(q)
+        for route, rows in svgp_route_distances(q, goldens32).items():
+            print(f"  {label} route {route}, trained outcome from JAX float32's run of the "
+                  "route, |err| / limit: " + ", ".join(
+                      f"{name} {err:.3g} / {lim:.3g}" for name, err, lim in rows), flush=True)
+    print("  goldens MATCH, cold and warm, both routes", flush=True)
+    model0 = svgp_model(goldens32["leaves_start"])
+    rates = {route: steps_per_s(route, model0) for route in SVGP_ROUTES}
+    print(f"  svgp_elbo_train_steps_per_s (200 warm steps, batch {SVGP_BATCH}): route (i) torch "
+          f"{rates['xla']:.2f}, route (ii) kernels {rates['kernel']:.2f}", flush=True)
+    Xn, Yn, _ = svgp_problem()
+    busy = device_busy(lambda: train_kernel_route(model0, Xn, Yn), "svgp_profile.txt",
+                       kernel="gram_")
+    if busy["device_s"] > 0:
+        print(f"  profiled route (ii) training: {busy['wall_s']:.2f} s wall, device busy "
+              f"{busy['device_s']:.3f} s ({100 * busy['device_s'] / busy['wall_s']:.1f}% of the "
+              f"profiled run), gram kernels {busy['kernel_s']:.4f} s", flush=True)
+    else:
+        print("  profiled run: the profiler recorded no device events; device busy share "
+              "not measured", flush=True)
+    return dict(launches=runs[0]["routes"]["kernel"]["launches"], rates=rates,
+                seconds={label: {r: q["routes"][r]["seconds"] for r in SVGP_ROUTES}
+                         for label, q in zip(("cold", "warm"), runs)})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
@@ -1859,6 +2460,8 @@ def main() -> int:
     front = phase_frontier()
     dense = phase_dense()
     mi = phase_multi_input()
+    gram = phase_svgp_checks()
+    svgp = phase_svgp()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
@@ -1897,6 +2500,15 @@ def main() -> int:
             launches=mi["launches"][name], max_abs_err=dense["max_abs_err"][with_w],
             ms=row[f"ms_{tag}"], plain_ms=row[f"plain_ms_{tag}"], bound_ms=row[f"bound_{tag}"][0],
             bound_by=row[f"bound_{tag}"][1], library_ms=row[f"library_ms_{tag}"]))
+    for name, tag, line in (("svgp_gram_fwd", "fwd", 77), ("svgp_gram_bwd", "bwd", 94)):
+        tm = gram["times"]
+        kernels.append(dict(
+            name=name, route="cuda", source="portfoliooptgp_tpu_torch/csrc/svgp_gram.cu",
+            replaces=f"portfoliooptgp_tpu/ops/pallas/svgp_gram.py:{line}",
+            launches=svgp["launches"][name], max_abs_err=gram["max_abs_err"][tag],
+            ms=tm[f"ms_{tag}"], plain_ms=tm[f"plain_ms_{tag}"], bound_ms=tm[f"bound_{tag}"][0],
+            bound_by=tm[f"bound_{tag}"][1], library_ms=tm[f"library_ms_{tag}"],
+            eager_ms=tm[f"eager_ms_{tag}"]))
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

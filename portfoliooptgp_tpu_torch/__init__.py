@@ -13,11 +13,12 @@ them in the JAX package's `jax.tree.leaves` order. Entry points take
 runs float32 on the TPU, where x64 is off) and raise on a machine without
 a GPU instead of dropping to the CPU. Tests pass ``device="cpu"``.
 
-Kernels: `ops/stationary_nll.py`, `ops/blocked_nll.py` and `ops/nll.py`
-launch the hand-written CUDA kernels in `csrc/stationary_nll.cu` (the
-fused NLL tiers), `csrc/dense_nll.cu` (the dense tier's factor),
-`csrc/blocked_panel.cu` (the blocked tier's panel factor) and
-`csrc/trinv.cu` (the hinv tier's diagonal-block inverse), built with nvcc
+Kernels: `ops/stationary_nll.py`, `ops/blocked_nll.py`, `ops/nll.py` and
+`ops/svgp_gram.py` launch the hand-written CUDA kernels in
+`csrc/stationary_nll.cu` (the fused NLL tiers), `csrc/dense_nll.cu` (the
+dense tier's factor), `csrc/blocked_panel.cu` (the blocked tier's panel
+factor), `csrc/trinv.cu` (the hinv tier's diagonal-block inverse) and
+`csrc/svgp_gram.cu` (the SVGP ELBO's batch phase), built with nvcc
 at first use into `build/`, for CUDA tensors, and their plain PyTorch
 versions for CPU tensors.
 """

@@ -1,1 +1,1 @@
-"""CSV loading, calendar and feature transforms."""
+"""CSV loading, calendar, feature transforms and the minibatch iterator."""

@@ -1,2 +1,2 @@
-"""Models of the ported paths: exact GPR, its Gaussian likelihood, ARIMA and
-the ICM multi-output GP."""
+"""Models of the ported paths: exact GPR, ARIMA, the ICM multi-output GP,
+the sparse and variational models (SVGP, SGPR, VGP) and their likelihoods."""

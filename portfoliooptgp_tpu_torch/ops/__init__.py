@@ -1,1 +1,2 @@
-"""Linear algebra and the wrappers of the CUDA NLL kernels."""
+"""Linear algebra and the wrappers of the CUDA kernels (the NLL tiers and
+the SVGP gram phase)."""

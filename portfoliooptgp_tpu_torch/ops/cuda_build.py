@@ -22,7 +22,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = {"stationary_nll": "stationary_nll.cu", "blocked_panel": "blocked_panel.cu",
-           "trinv": "trinv.cu", "dense_nll": "dense_nll.cu"}
+           "trinv": "trinv.cu", "dense_nll": "dense_nll.cu", "svgp_gram": "svgp_gram.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

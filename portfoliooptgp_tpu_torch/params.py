@@ -22,6 +22,16 @@ kernels/periodic.py, kernels/linear.py and kernels/means.py; menu entry 6,
     [exp.raw_variance, exp.raw_lengthscales,
      se.raw_variance, se.raw_lengthscales, periodic.raw_period,
      linear.raw_variance, likelihood.raw_variance]
+
+The sparse and variational models are one model each: their kernel and
+likelihood leaves keep the batch axis of 1, the variational leaves keep
+the JAX package's shapes. `SVGP(SE, Gaussian, Zero)` gives
+
+    [kernel.raw_variance (1,), kernel.raw_lengthscales (1,) or (1, D),
+     likelihood.raw_variance (1,), Z (M, D), q_mu (M, P), q_sqrt (P, M, M)]
+
+SGPR ends at Z; VGP has q_mu (N, P), q_sqrt (P, N, N) after the
+likelihood (StudentT: raw_scale (1,)).
 """
 
 from __future__ import annotations

@@ -290,3 +290,81 @@ def test_torch_cuda_dense_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError):
         nll.factor_solve_cuda(torch.eye(257, device=cuda)[None], torch.zeros((1, 257), device=cuda),
                               noise, True)
+
+
+# -- the SVGP gram kernels (csrc/svgp_gram.cu) ---------------------------------
+
+def _gram_max_err(got, want):
+    scale = max(float(want.abs().max()), 1e-30)
+    return float((got - want).abs().max()) / scale
+
+
+@pytest.mark.parametrize("M,B", [(16, 96), (64, 512), (128, 2048), (128, 8192)])
+@pytest.mark.parametrize("D", [1, 3])
+@pytest.mark.parametrize("family", ["se", "matern12", "matern32", "matern52"])
+def test_torch_cuda_svgp_gram_kernels_match_plain(cuda, family, D, M, B):
+    """Both kernels against their plain versions at phase 10a's shapes,
+    each output relative to its largest entry (tests/test_svgp_gram_fused.py's
+    tolerances: values 2e-4, gradients 3e-3, 5e-3 for ARD Matern)."""
+    import chip_smoke as cs
+    from portfoliooptgp_tpu_torch.ops import svgp_gram as sg
+
+    Z, X, y, w, t, v, s, Gbar, sqbar = cs.gram_operands(M, B, D, seed=M + B + D)
+    before = dict(sg.LAUNCHES)
+    G, sq = sg.gram_fwd(Z, X, y, w, t, v, s, family)
+    got = sg.gram_bwd(Z, X, y, w, t, v, s, family, Gbar, sqbar)
+    torch.cuda.synchronize()
+    assert sg.LAUNCHES["svgp_gram_fwd"] == before["svgp_gram_fwd"] + 1
+    assert sg.LAUNCHES["svgp_gram_bwd"] == before["svgp_gram_bwd"] + 1
+    Gp, sqp = sg.gram_fwd_plain(Z, X, y, w, t, v, s, family)
+    want = sg.gram_bwd_plain(Z, X, y, w, t, v, s, family, Gbar, sqbar)
+    assert _gram_max_err(G, Gp) <= 2e-4
+    assert _gram_max_err(sq, sqp) <= 2e-4
+    gtol = 5e-3 if (D > 1 and family != "se") else 3e-3
+    for name, a, b in zip(("Zbar", "ybar", "tbar", "vbar", "sbar"), got, want):
+        assert torch.all(torch.isfinite(a)), name
+        assert _gram_max_err(a, b) <= gtol, (name, _gram_max_err(a, b))
+    n_real = int(w.sum())
+    assert torch.all(got[1][n_real:] == 0)  # weight-0 rows get exactly zero ȳ
+
+
+def test_torch_cuda_svgp_gram_reduce_autograd_round_trip(cuda):
+    """gram_reduce's value and every gradient on the card against the same
+    call on CPU copies (the plain versions), at the benchmark shape."""
+    import chip_smoke as cs
+    from portfoliooptgp_tpu_torch.ops import svgp_gram as sg
+
+    Z, X, y, w, t, v, s, _, _ = cs.gram_operands(128, 2048, 1, seed=5)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        leaves = [a.detach().to(dev).requires_grad_(True) for a in (Z, y, t, v, s)]
+        Zl, yl, tl, vl, sl = leaves
+        G, sq = sg.gram_reduce(Zl, X.to(dev), yl, w.to(dev), tl, vl, sl, "matern32")
+        loss = torch.sum(G * torch.linspace(-1, 1, 128 * 128, device=dev).reshape(128, 128)) \
+            + 0.3 * sq
+        outs.append([loss.detach().cpu()] + [g.cpu() for g in torch.autograd.grad(loss, leaves)])
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=2e-4, atol=0)
+    for a, b in zip(outs[0][1:], outs[1][1:]):
+        assert _gram_max_err(a, b) <= 3e-3
+
+
+def test_torch_cuda_svgp_gram_broken_build_raises(cuda, tmp_path, monkeypatch):
+    """No hidden fallback: when the source does not build, a CUDA call
+    raises instead of running the plain version, and counts no launch."""
+    from portfoliooptgp_tpu_torch.ops import cuda_build
+    from portfoliooptgp_tpu_torch.ops import svgp_gram as sg
+
+    (tmp_path / "svgp_gram.cu").write_text("this is not CUDA C++\n")
+    monkeypatch.setattr(cuda_build, "CSRC", str(tmp_path))
+    monkeypatch.setenv("PORTFOLIOOPTGP_BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.delitem(cuda_build._LIBS, "svgp_gram", raising=False)
+    monkeypatch.setattr(sg, "_LIB", None)
+    ops = [torch.ones(8, 1, device=cuda), torch.ones(16, 1, device=cuda),
+           torch.ones(16, device=cuda), torch.ones(16, device=cuda), torch.ones(8, device=cuda),
+           torch.ones(1, device=cuda), torch.ones(1, device=cuda)]
+    before = dict(sg.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        sg.gram_fwd(*ops, "se")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        sg.gram_reduce(*ops, "se")
+    assert sg.LAUNCHES == before

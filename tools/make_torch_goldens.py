@@ -58,6 +58,22 @@ in `compare_to_goldens`' format. About 3 min in float64 and 5.5 min in
 float32 on one core:
 
     JAX_PLATFORMS=cpu python tools/make_torch_goldens.py --multi-input --float32
+With `--svgp` it runs the JAX package's sparse-variational workflow at
+full-AAPL scale instead: bench.py's SVGP problem (`chip_smoke.svgp_problem`:
+N = 10,963 daily points, M = 128 inducing points on a linspace, SE(1.0,
+300.0), Gaussian(1.0) frozen) trained by `train_svgp_minibatched` with
+`chip_smoke.SVGP_TRAIN` (batch 2048, 10 epochs, seed 0, groups of 8), and
+writes tests/goldens_torch/svgp_full_aapl.json (float64) or, with
+`--float32`, svgp_full_aapl_f32.json. The float32 file also holds the kernel
+route: the same iterator stream, Adam and frozen likelihood through
+`gaussian_elbo_gram_fused(..., use_pallas=True)`, the Pallas gram kernels in
+interpret mode. Per route: the full-data ELBO at the start and at the end,
+the route's ELBO on the first batch at the start and at the end (with its
+gradient at the start for the kernel route), the final leaves, `predict_f`
+on `chip_smoke.SVGP_GRID` points and the iteration count; the initial
+leaves once. About 1 min in float64 and 2 min in float32 on one core:
+
+    JAX_PLATFORMS=cpu python tools/make_torch_goldens.py --svgp --float32
 """
 
 from __future__ import annotations
@@ -300,7 +316,95 @@ def multi_input() -> int:
     return 0
 
 
+def svgp() -> int:
+    import optax
+
+    from chip_smoke import (SVGP_BATCH, SVGP_GRID, SVGP_N, SVGP_TRAIN, svgp_goldens_path,
+                            svgp_problem)
+    from portfoliooptgp_tpu import kernels as jk
+    from portfoliooptgp_tpu.data.iterator import MinibatchIterator
+    from portfoliooptgp_tpu.models import svgp as svgp_mod
+    from portfoliooptgp_tpu.train import lbfgs, svgp_trainer
+
+    dtype = jnp.float32 if FLOAT32 else jnp.float64
+    digits = 9 if FLOAT32 else 17  # 9 significant digits round-trip a float32
+
+    def flat(x):
+        return [float(f"{v:.{digits}g}") for v in np.asarray(x, np.float64).reshape(-1)]
+
+    def leaves(tree):
+        return [flat(x) for x in jax.tree.leaves(tree)]
+
+    X, Y, Z = (a.astype(dtype) for a in svgp_problem())
+    model0 = svgp_mod.SVGP.create(jk.SquaredExponential.create(variance=1.0, lengthscales=300.0),
+                                  inducing_points=jnp.asarray(Z))
+    model0 = jax.tree.map(lambda x: jnp.asarray(x, dtype), model0)
+    Xb, Yb = jnp.asarray(X[:SVGP_BATCH]), jnp.asarray(Y[:SVGP_BATCH])
+    wb = jnp.ones((SVGP_BATCH,), dtype)
+    grid = jnp.asarray(np.linspace(0, X.max(), SVGP_GRID)[:, None].astype(dtype))
+    full = jax.jit(lambda m: svgp_mod.gaussian_elbo_gram(m, jnp.asarray(X), jnp.asarray(Y)))
+
+    def batch_elbo(use_pallas):
+        return jax.jit(jax.value_and_grad(lambda m: svgp_mod.gaussian_elbo_gram_fused(
+            m, Xb, Yb, weights=wb, num_data=SVGP_N, use_pallas=use_pallas)))
+
+    def kernel_route():
+        """train_svgp_minibatched's loop with the loss on use_pallas=True."""
+        frozen = lbfgs.freeze_leaves(model0, likelihood=True)
+        opt = optax.adam(1e-2)
+
+        @jax.jit
+        def step(model, state, Xs, Ys, ws):
+            loss, g = jax.value_and_grad(lambda m: -svgp_mod.gaussian_elbo_gram_fused(
+                m, Xs, Ys, weights=ws, num_data=SVGP_N, use_pallas=True))(model)
+            g = jax.tree.map(lambda a, f: jnp.zeros_like(a) if f else a, g, frozen)
+            updates, state = opt.update(g, state, model)
+            return optax.apply_updates(model, updates), state, loss
+
+        assert svgp_mod.svgp_gram_fused_supported(model0, Xb)
+        model, state, loss, steps = model0, opt.init(model0), jnp.inf, 0
+        with MinibatchIterator(X, Y, **SVGP_TRAIN) as it:
+            for Xs, Ys, ws in it:
+                for k in range(Xs.shape[0]):
+                    if float(jnp.sum(ws[k])) > 0.0:
+                        model, state, loss = step(model, state, Xs[k], Ys[k], ws[k])
+                        steps += 1
+        return svgp_trainer.SVGPTrainResult(model=model, elbo=-loss, iters=steps)
+
+    routes = {}
+    for route in ("xla", "kernel") if FLOAT32 else ("xla",):
+        t0 = time.perf_counter()
+        if route == "xla":
+            res = svgp_trainer.train_svgp_minibatched(model0, X, Y, **SVGP_TRAIN)
+        else:
+            res = kernel_route()
+        jax.block_until_ready(res.model)
+        seconds = time.perf_counter() - t0
+        vg = batch_elbo(route == "kernel")
+        v0, g0 = vg(model0)
+        v1, _ = vg(res.model)
+        mean, var = svgp_mod.predict_f(res.model, grid)
+        routes[route] = dict(
+            seconds=seconds, iters=int(res.iters), train_elbo=float(res.elbo),
+            elbo_start=float(full(model0)), elbo_final=float(full(res.model)),
+            batch_elbo_start=float(v0), batch_elbo_final=float(v1),
+            batch_grads_start=leaves(g0) if route == "kernel" else None,
+            leaves_final=leaves(res.model), f_mean=flat(mean), f_var=flat(var))
+        print(route, "elbo", routes[route]["elbo_start"], "->", routes[route]["elbo_final"],
+              "iters", int(res.iters), f"{seconds:.1f} s")
+    out = dict(
+        source=(f"JAX train_svgp_minibatched on bench.py's SVGP problem, "
+                f"{'float32' if FLOAT32 else 'float64'}, CPU (tools/make_torch_goldens.py --svgp)"),
+        n=SVGP_N, train=SVGP_TRAIN, grid=SVGP_GRID, leaves_start=leaves(model0), routes=routes)
+    path = svgp_goldens_path(FLOAT32)
+    with open(path, "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
 def main() -> int:
+    if "--svgp" in sys.argv[1:]:
+        return svgp()
     if "--multi-input" in sys.argv[1:]:
         return multi_input()
     if "--frontier" in sys.argv[1:]:
