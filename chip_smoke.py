@@ -1502,14 +1502,98 @@ def panel_bound_ms(nt, B=1):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _spd(B, N, seed):
-    """(B, N, N) float32 SPD matrices on the card: AAᵀ/N + ½I from a seed."""
+def _spd(B, N, seed, device=DEVICE):
+    """(B, N, N) float32 SPD matrices: AAᵀ/N + ½I from a seed."""
     rng = np.random.default_rng(seed)
-    A = torch.tensor(rng.normal(size=(B, N, N)), dtype=torch.float64, device=DEVICE)
-    return (A @ A.mT / N + 0.5 * torch.eye(N, dtype=torch.float64, device=DEVICE)).float()
+    A = torch.tensor(rng.normal(size=(B, N, N)), dtype=torch.float64, device=device)
+    return (A @ A.mT / N + 0.5 * torch.eye(N, dtype=torch.float64, device=device)).float()
 
 
 PANEL_HEIGHTS = (875, 747, 619, 491, 363, 235, 107)  # the 7 panels of N = 875
+
+
+def se_daily_gram(N, jitter, device=DEVICE):
+    """(1, N, N) float32: an SE Gram matrix on a daily grid (the day index
+    scaled to unit std, lengthscale 0.05) plus jitter·I, the conditioning of
+    the daily menu's Ks at σ² = 1e-5."""
+    x = torch.arange(N, dtype=torch.float64, device=device)
+    x = (x - x.mean()) / x.std()
+    K = torch.exp(-0.5 * (x[:, None] - x[None, :]) ** 2 / 0.05 ** 2)
+    return (K + jitter * torch.eye(N, dtype=torch.float64, device=device))[None].float()
+
+
+def panel_residual(Lp, panel):
+    """max |L11 L11ᵀ − A11| (lower triangle) and |L21 L11ᵀ − A21| in float64,
+    over max |A|: the backward error of a panel factor, which stays at
+    rounding level however ill-conditioned A is (two float32 factors of the
+    same ill-conditioned panel may differ far more than that)."""
+    Lp, A = Lp.double(), panel.double()
+    pw = A.shape[2]
+    L11 = Lp[:, :pw]
+    r11 = torch.tril(L11 @ L11.mT - A[:, :pw]).abs().max()
+    r21 = (Lp[:, pw:] @ L11.mT - A[:, pw:]).abs().max() if A.shape[1] > pw else r11 * 0
+    return float(torch.maximum(r11, r21) / A.abs().max())
+
+
+PANEL_ILL_RESIDUAL = 4.0     # the kernel's backward error, at most this times the plain version's
+PANEL_ILL_RESIDUAL_FLOOR = 2e-6  # ... or this much of max |A|
+
+
+def indefinite_at(Ks, pivot):
+    """Ks with its diagonal entry `pivot` lowered so that the Cholesky pivot
+    there is −1: the factor is exact up to column pivot − 1 and fails there."""
+    K = Ks.double()
+    L = torch.linalg.cholesky(K[:, :pivot + 1, :pivot + 1])
+    K[:, pivot, pivot] -= L[:, pivot, pivot] ** 2 + 1.0
+    return K.float()
+
+
+PANEL_PIVOTS = (32, 64, 100)  # indefinite pivots: sub-panel boundaries and inside one
+
+
+def check_panel_indefinite(pivot, device=DEVICE):
+    """The panel kernel on a (2, 300) panel whose pivot `pivot` is −1: NaN in
+    the log sum and in every entry on and below the diagonal from column
+    `pivot` on; the earlier columns finite and within VALUE_RTOL of max |L|
+    of the plain factor of the same columns (the diagonal lifted from
+    `pivot` on, which changes none of them); zeros above L11's diagonal.
+    Returns the largest |Δ| of the earlier columns."""
+    from portfoliooptgp_tpu_torch.ops import blocked_nll as bn
+
+    Ks = indefinite_at(_spd(2, 300, 5, device), pivot)
+    Lk, ldk = bn.factor_panel(Ks[:, :, :128])
+    lifted = Ks.clone()
+    lifted.diagonal(dim1=-2, dim2=-1)[:, pivot:] += 100.0
+    Lp, _ = bn.factor_panel_plain(lifted[:, :, :128])
+    rows = torch.arange(300, device=device)[:, None]
+    cols = torch.arange(128, device=device)[None, :]
+    failed = (cols >= pivot) & (rows >= cols)
+    good, want = Lk[:, :, :pivot], Lp[:, :, :pivot]
+    err = _max_err(good, want)
+    if not (torch.all(torch.isnan(ldk)) and torch.all(torch.isnan(Lk[:, failed]))
+            and torch.all(torch.isfinite(good)) and err <= VALUE_RTOL * float(want.abs().max())
+            and torch.all(torch.triu(Lk[:, :128], 1) == 0)):
+        raise AssertionError(f"panel with an indefinite pivot at {pivot}: log sum {ldk.tolist()}, "
+                             f"earlier columns err {err:.3e}")
+    return err
+
+
+def check_panel_ill_conditioned(device=DEVICE):
+    """The first panel of se_daily_gram(875, 1e-5): finite, backward error
+    at most PANEL_ILL_RESIDUAL × the plain version's (or the floor), log sum
+    within VALUE_RTOL of the plain version's. Returns both residuals."""
+    from portfoliooptgp_tpu_torch.ops import blocked_nll as bn
+
+    panel = se_daily_gram(875, 1e-5, device)[:, :, :128]
+    Lk, ldk = bn.factor_panel(panel)
+    Lp, ldp = bn.factor_panel_plain(panel)
+    rk, rp = panel_residual(Lk, panel), panel_residual(Lp, panel)
+    if not (torch.all(torch.isfinite(Lk)) and torch.all(torch.isfinite(Lp))
+            and rk <= max(PANEL_ILL_RESIDUAL * rp, PANEL_ILL_RESIDUAL_FLOOR)
+            and float(torch.max(torch.abs(ldk / ldp - 1))) <= VALUE_RTOL):
+        raise AssertionError(f"ill-conditioned panel: residual {rk:.3e} (plain {rp:.3e}), "
+                             f"log sum {ldk.tolist()} (plain {ldp.tolist()})")
+    return rk, rp
 
 
 def phase_blocked_checks():
@@ -1519,8 +1603,10 @@ def phase_blocked_checks():
     batched_nll_blocked on the card (the kernel) against the same call on
     CPU copies of the float32 inputs (the plain panel factor), values (rtol
     3e-3) and gradients of K, y and noise (normalized 2e-2) at N = 875 and
-    at the JAX package's padded N = 896. Returns the largest |Δ| of L and
-    NLLs."""
+    at the JAX package's padded N = 896; then an ill-conditioned panel
+    (check_panel_ill_conditioned), indefinite pivots at PANEL_PIVOTS
+    (check_panel_indefinite) and the kernel writing into a view of L.
+    Returns the largest |Δ| of L and NLLs."""
     from portfoliooptgp_tpu_torch.ops import blocked_nll as bn
 
     worst = 0.0
@@ -1556,6 +1642,27 @@ def phase_blocked_checks():
         worst = max(worst, _max_err(outs[0][0], outs[1][0]))
         print(f"check blocked nll B={B} N={N}: value rel err {verr:.3e}, grad normalized "
               f"err {gerr:.3e}", flush=True)
+    rk, rp = check_panel_ill_conditioned()
+    print(f"check panel ill-conditioned (SE daily grid + 1e-5 I, nt=875): backward error "
+          f"{rk:.3e} of max |A| (plain {rp:.3e}; limit max({PANEL_ILL_RESIDUAL} x plain, "
+          f"{PANEL_ILL_RESIDUAL_FLOOR}))", flush=True)
+    for pivot in PANEL_PIVOTS:
+        err = check_panel_indefinite(pivot)
+        worst = max(worst, err)
+        print(f"check panel indefinite pivot {pivot}: NaN log sum and columns >= {pivot}, "
+              f"earlier columns max |err| {err:.3e}", flush=True)
+    Ks = _spd(3, 619, 4)
+    buf = torch.full((3, 875, 875), 7.0, device=DEVICE)
+    view = buf[:, 256:, 256:384]
+    Lk, ldk = bn.factor_panel_cuda(Ks[:, :, :128])
+    Lo, ldo = bn.factor_panel_cuda(Ks[:, :, :128], out=view)
+    rest = torch.ones_like(buf, dtype=torch.bool)
+    rest[:, 256:, 256:384] = False
+    if not (Lo.data_ptr() == view.data_ptr() and torch.equal(view, Lk) and torch.equal(ldo, ldk)
+            and bool(torch.all(buf[rest] == 7.0))):
+        raise AssertionError("the panel kernel did not write exactly its panel into `out`")
+    print("check panel out=: the L panel written into a view of a (3, 875, 875) factor, bit "
+          "for bit, nothing else touched", flush=True)
     return worst
 
 
@@ -1686,8 +1793,9 @@ def phase_single_asset():
     """The single-asset pipeline on the card in float32, cold then warm,
     against the JAX float64 goldens, then once more under the profiler; the
     panel kernel's launches in the cold run; the kernel's time at every
-    panel height of N = 875, and at nt = 875 beside its plain version, its
-    bound and torch.linalg.cholesky on the same matrix."""
+    panel height of N = 875 and at B = 8, and at nt = 875 beside its plain
+    version, its bound and torch.linalg.cholesky_ex on the same matrix, by
+    CUDA-graph replay and eager; the whole blocked factor both ways."""
     from portfoliooptgp_tpu_torch.ops import blocked_nll as bn
     from portfoliooptgp_tpu_torch.ops import stationary_nll as st
 
@@ -1740,25 +1848,42 @@ def phase_single_asset():
               "share not measured", flush=True)
 
     Ks = _spd(1, 875, 875)
+    Ks8 = _spd(8, 875, 876)
+
+    def view(K, nt):
+        return K[:, 875 - nt:, 875 - nt:875 - nt + min(128, nt)]
+
     with torch.no_grad():
-        per_height = {nt: cuda_ms(lambda nt=nt: bn.factor_panel_cuda(
-            Ks[:, 875 - nt:, 875 - nt:875 - nt + min(128, nt)]), reps=50)
-            for nt in PANEL_HEIGHTS}
-        p = cuda_ms(lambda: bn.factor_panel_plain(Ks[:, :, :128]), reps=50)
-        lib = cuda_ms(lambda: torch.linalg.cholesky(Ks), reps=50)
-        whole = cuda_ms(lambda: bn.blocked_cholesky(Ks), reps=20)
-    k = per_height[875]
+        graph = {nt: graph_ms(lambda nt=nt: bn.factor_panel_cuda(view(Ks, nt)))
+                 for nt in PANEL_HEIGHTS}
+        eager = {nt: cuda_ms(lambda nt=nt: bn.factor_panel_cuda(view(Ks, nt)), reps=50)
+                 for nt in PANEL_HEIGHTS}
+        k8, k8_eager = (graph_ms(lambda: bn.factor_panel_cuda(Ks8[:, :, :128])),
+                        cuda_ms(lambda: bn.factor_panel_cuda(Ks8[:, :, :128]), reps=50))
+        p, p_eager = (graph_ms(lambda: bn.factor_panel_plain(Ks[:, :, :128])),
+                      cuda_ms(lambda: bn.factor_panel_plain(Ks[:, :, :128]), reps=50))
+        lib, lib_eager = (graph_ms(lambda: torch.linalg.cholesky_ex(Ks)),
+                          cuda_ms(lambda: torch.linalg.cholesky(Ks), reps=50))
+        whole, whole_eager = (graph_ms(lambda: bn.blocked_cholesky(Ks), reps=20),
+                              cuda_ms(lambda: bn.blocked_cholesky(Ks), reps=20))
+    k = graph[875]
     bound, bound_by = panel_bound_ms(875)
     total_bound = sum(panel_bound_ms(nt)[0] for nt in PANEL_HEIGHTS)
-    print(f"  panel nt=875 B=1: kernel {k:.4f} ms, plain {p:.4f} ms, bound {bound:.6f} ms "
-          f"({bound_by}); torch.linalg.cholesky (1, 875, 875) {lib:.4f} ms; the whole "
-          f"blocked factor (7 panels + trailing matmuls) {whole:.4f} ms, kernel summed over "
-          f"the 7 panel heights {sum(per_height.values()):.4f} ms, panel bounds summed "
-          f"{total_bound:.6f} ms", flush=True)
-    print("  kernel ms by panel height: " + json.dumps(
-        {nt: round(ms, 4) for nt, ms in per_height.items()}), flush=True)
+    print(f"  panel nt=875 B=1 (graph replay): kernel {k:.4f} ms, plain {p:.4f} ms, bound "
+          f"{bound:.6f} ms ({bound_by}); torch.linalg.cholesky_ex (1, 875, 875) {lib:.4f} ms; "
+          f"kernel summed over the 7 panel heights {sum(graph.values()):.4f} ms, panel bounds "
+          f"summed {total_bound:.6f} ms; the whole blocked factor (7 panels + trailing "
+          f"matmuls) {whole:.4f} ms", flush=True)
+    print(f"  panel nt=875 B=8 (graph replay): kernel {k8:.4f} ms, bound "
+          f"{panel_bound_ms(875, 8)[0]:.6f} ms; eager (CUDA events around back-to-back calls): "
+          f"kernel {eager[875]:.4f} ms (B=8 {k8_eager:.4f}), plain {p_eager:.4f} ms, "
+          f"torch.linalg.cholesky {lib_eager:.4f} ms, whole blocked factor {whole_eager:.4f} ms",
+          flush=True)
+    print("  kernel ms by panel height, graph replay: " + json.dumps(
+        {nt: round(ms, 4) for nt, ms in graph.items()}) + "; eager: " + json.dumps(
+        {nt: round(ms, 4) for nt, ms in eager.items()}), flush=True)
     return dict(launches=launches, ms=k, plain_ms=p, library_ms=lib, bound_ms=bound,
-                bound_by=bound_by, cold_s=cold, warm_s=warm)
+                bound_by=bound_by, eager_ms=eager[875], cold_s=cold, warm_s=warm)
 
 
 def trinv_bound_ms(nblocks):
@@ -1790,6 +1915,50 @@ def _chol_factors(kind, B, Np, seed):
 
 
 TRINV_SHAPES = ((20, 1408), (20, 1024), (20, 256), (20, 128), (8, 128))  # 220, 160, 40, 20, 8 blocks
+UNEVEN_VIEWS = ((0, 1024), (1024, 1280), (1280, 1408))  # the 8 + 2 + 1 split of 11 panels
+# (row, column, value) set inside a 128-block: a NaN inside a diagonal
+# 32-block, a NaN inside an off-diagonal 32-block, a zero pivot
+TRINV_CORRUPTIONS = {"nan_diagonal_block": (40, 35, float("nan")),
+                     "nan_offdiagonal_block": (100, 10, float("nan")),
+                     "zero_pivot": (50, 50, 0.0)}
+
+
+def check_trinv_equal(name, Wk, Wp):
+    """NaN and inf of the kernel's W exactly where the plain version has
+    them; the finite entries within VALUE_RTOL of the largest. Returns the
+    largest |Δ| of the finite entries."""
+    if not (torch.equal(torch.isnan(Wk), torch.isnan(Wp))
+            and torch.equal(torch.isinf(Wk), torch.isinf(Wp))):
+        raise AssertionError(f"{name}: NaN/inf pattern differs from plain (NaN "
+                             f"{int(torch.isnan(Wk).sum())} vs {int(torch.isnan(Wp).sum())}, inf "
+                             f"{int(torch.isinf(Wk).sum())} vs {int(torch.isinf(Wp).sum())})")
+    fin = torch.isfinite(Wp)
+    err = _max_err(Wk[fin], Wp[fin])
+    if err > VALUE_RTOL * float(Wp[fin].abs().max()):
+        raise AssertionError(f"{name}: W err {err:.3e}")
+    return err
+
+
+def check_trinv_pattern(kind, layout, device=DEVICE):
+    """The triangular inverse of a (4, 512) batch with TRINV_CORRUPTIONS[kind]
+    in blocks (1, 2) and (3, 0), column-major (as torch.linalg.cholesky
+    returns it) or row-major: NaN and inf exactly where the plain version
+    has them, and only in those blocks. Returns the counts of NaN and inf."""
+    from portfoliooptgp_tpu_torch.ops import nll
+
+    L = torch.linalg.cholesky(_spd(4, 512, 11, device).double()).float()
+    if layout == "row-major":
+        L = L.contiguous()
+    r, c, value = TRINV_CORRUPTIONS[kind]
+    for b, p in ((1, 2), (3, 0)):
+        L[b, 128 * p + r, 128 * p + c] = value
+    Wk = nll.triangular_inverse(L)
+    Wp = nll.triangular_inverse_plain(L)
+    bad = ~torch.isfinite(Wp)
+    if not (bool(bad[1, 2].any()) and bool(bad[3, 0].any()) and not bool(bad[0].any())):
+        raise AssertionError(f"trinv {kind}: the corruption did not reach W as planted")
+    check_trinv_equal(f"trinv {kind} {layout}", Wk, Wp)
+    return int(torch.isnan(Wp).sum()), int(torch.isinf(Wp).sum())
 
 
 def _hinv_problem(B, N, kind):
@@ -1819,12 +1988,17 @@ def phase_hinv_checks():
     on the card at 220, 160, 40, 20 and 8 blocks (the five-year grid's
     20 × 1408 factors and the uneven split's 20 × 1024, 20 × 256, 20 × 128,
     and 8 × 128): random, ill-conditioned and NaN-holding factors; W within
-    VALUE_RTOL of max |W| and NaN exactly where the plain version has it.
-    Then batched_nll_hinv's values and gradients on the card against the
-    same call on CPU copies (phase 2's tolerances) at (B, N) = (20, 1304),
-    ICM-like, and (8, 2048), bench_hinv4096's. Then the times: the kernel,
-    its plain version and torch.linalg.solve_triangular(L_blocks, I) at 220
-    blocks; the hinv value+grad at (20, 1304); and torch.linalg.cholesky +
+    VALUE_RTOL of max |W| and NaN exactly where the plain version has it;
+    NaN inside a diagonal and an off-diagonal 32-block and a zero pivot in
+    column- and row-major factors (check_trinv_pattern), and the uneven
+    split's views of a factor, NaN and inf exactly where the plain version
+    has them. Then batched_nll_hinv's values and gradients on the card
+    against the same call on CPU copies (phase 2's tolerances) at (B, N) =
+    (20, 1304), ICM-like, and (8, 2048), bench_hinv4096's. Then the times,
+    by CUDA-graph replay and eager: the kernel at 220, 160, 40 and 20
+    blocks, its plain version and torch.linalg.solve_triangular(L_blocks,
+    I) at 220 blocks, the whole triangular_inverse_uneven at (20, 1408);
+    the hinv value+grad at (20, 1304); and torch.linalg.cholesky +
     torch.cholesky_inverse on the same Ks as a yardstick."""
     from portfoliooptgp_tpu_torch.ops import blocked_nll as bn
     from portfoliooptgp_tpu_torch.ops import linalg
@@ -1852,6 +2026,19 @@ def phase_hinv_checks():
             worst, worst_abs = max(worst, err / scale), max(worst_abs, err)
         print(f"check trinv B={B} Np={Np} ({B * Np // 128} blocks): random, ill-conditioned "
               f"and NaN factors match plain; worst normalized err so far {worst:.3e}", flush=True)
+    for kind in TRINV_CORRUPTIONS:
+        for layout in ("column-major", "row-major"):
+            n_nan, n_inf = check_trinv_pattern(kind, layout)
+            print(f"check trinv {kind} ({layout}): NaN {n_nan} and inf {n_inf} entries, exactly "
+                  "where the plain version has them", flush=True)
+    L = _chol_factors("random", 20, 1408, 13)
+    L[7, 1024 + 200, 1024 + 150] = float("nan")
+    for lo, hi in UNEVEN_VIEWS:
+        Wk = nll.triangular_inverse_cuda(L[:, lo:hi, lo:hi])
+        Wp = nll.triangular_inverse_plain(L[:, lo:hi, lo:hi])
+        check_trinv_equal(f"trinv uneven view [{lo}:{hi}]", Wk, Wp)
+    print(f"check trinv on the uneven split's views {UNEVEN_VIEWS} of a (20, 1408) factor, one "
+          "with a NaN: match plain, NaN and inf exactly where it has them", flush=True)
     for B, N, kind in ((20, 1304, "icm"), (8, 2048, "bench")):
         if not bn.hinv_nll_preferred(N, B):
             raise AssertionError(f"({B}, {N}) is not in the hinv window")
@@ -1868,7 +2055,7 @@ def phase_hinv_checks():
         print(f"check hinv nll B={B} N={N} ({kind}): value rel err {verr:.3e}, grad normalized "
               f"err {gerr:.3e}", flush=True)
 
-    L = _chol_factors("random", 20, 1408, 7)
+    L = _chol_factors("random", 20, 1408, 7)  # column-major, as on the path
     blocks = torch.stack([L[:, p * 128:(p + 1) * 128, p * 128:(p + 1) * 128]
                           for p in range(11)], dim=1).reshape(220, 128, 128).contiguous()
     eye = torch.eye(128, device=DEVICE).expand(220, 128, 128)
@@ -1880,26 +2067,36 @@ def phase_hinv_checks():
         return torch.autograd.grad(value.sum(), leaves)
 
     Ks = linalg.add_diag(K, noise)
+    sizes = ((220, L), (160, L[:, :1024, :1024]), (40, L[:, 1024:1280, 1024:1280]),
+             (20, L[:, 1280:, 1280:]))
     with torch.no_grad():
-        k = cuda_ms(lambda: nll.triangular_inverse_cuda(L), reps=50)
-        per_call = {nb: cuda_ms(lambda s=s: nll.triangular_inverse_cuda(s), reps=50)
-                    for nb, s in ((160, L[:, :1024, :1024]), (40, L[:, 1024:1280, 1024:1280]),
-                                  (20, L[:, 1280:, 1280:]))}
-        p = cuda_ms(lambda: nll.triangular_inverse_plain(L), reps=5, warmup=1)
-        lib = cuda_ms(lambda: torch.linalg.solve_triangular(blocks, eye, upper=False), reps=50)
-        whole_inv = cuda_ms(lambda: bn.triangular_inverse_uneven(L), reps=20)
+        graph = {nb: graph_ms(lambda s=s: nll.triangular_inverse_cuda(s)) for nb, s in sizes}
+        eager = {nb: cuda_ms(lambda s=s: nll.triangular_inverse_cuda(s), reps=50)
+                 for nb, s in sizes}
+        p = graph_ms(lambda: nll.triangular_inverse_plain(L), reps=5)
+        p_eager = cuda_ms(lambda: nll.triangular_inverse_plain(L), reps=5, warmup=1)
+        lib = graph_ms(lambda: torch.linalg.solve_triangular(blocks, eye, upper=False))
+        lib_eager = cuda_ms(lambda: torch.linalg.solve_triangular(blocks, eye, upper=False),
+                            reps=50)
+        whole = graph_ms(lambda: bn.triangular_inverse_uneven(L), reps=20)
+        whole_eager = cuda_ms(lambda: bn.triangular_inverse_uneven(L), reps=20)
         chol_inv = cuda_ms(lambda: torch.cholesky_inverse(torch.linalg.cholesky(Ks)), reps=10)
     vg = cuda_ms(value_and_grad, reps=10)
+    k = graph[220]
     bound, bound_by = trinv_bound_ms(220)
-    print(f"phase 7 trinv 220 blocks: kernel {k:.4f} ms, plain {p:.4f} ms, "
+    print(f"phase 7 trinv 220 blocks (graph replay): kernel {k:.4f} ms, plain {p:.4f} ms, "
           f"torch.linalg.solve_triangular(L_blocks, I) {lib:.4f} ms, bound {bound:.6f} ms "
           f"({bound_by}); kernel at the uneven split's sizes " + json.dumps(
-              {nb: round(ms, 4) for nb, ms in per_call.items()}), flush=True)
-    print(f"  whole hierarchical inverse (20, 1408) {whole_inv:.4f} ms; hinv value+grad "
-          f"(20, 1304) {vg:.4f} ms; torch.linalg.cholesky + torch.cholesky_inverse on the same "
-          f"Ks {chol_inv:.4f} ms", flush=True)
+              {nb: round(ms, 4) for nb, ms in graph.items()}) + "; eager (CUDA events around "
+          "back-to-back calls) " + json.dumps({nb: round(ms, 4) for nb, ms in eager.items()})
+          + f", plain {p_eager:.4f} ms, solve_triangular {lib_eager:.4f} ms", flush=True)
+    print(f"  occupancy: trinv {nll._lib().trinv_ctas_per_sm()} CTAs per SM, blocked_panel "
+          f"{bn._lib().blocked_panel_ctas_per_sm()}; whole hierarchical inverse (20, 1408) "
+          f"{whole:.4f} ms graph, {whole_eager:.4f} ms eager; hinv value+grad (20, 1304) "
+          f"{vg:.4f} ms; torch.linalg.cholesky + torch.cholesky_inverse on the same Ks "
+          f"{chol_inv:.4f} ms", flush=True)
     return dict(ms=k, plain_ms=p, library_ms=lib, bound_ms=bound, bound_by=bound_by,
-                max_abs_err=worst_abs, value_grad_ms=vg)
+                max_abs_err=worst_abs, value_grad_ms=vg, eager_ms=eager[220])
 
 
 def _frontier_report(label, elapsed, q):
@@ -1931,8 +2128,12 @@ def phase_frontier():
                 # the replays do not depend on the fit: the warm run reuses the cold run's
                 runs.append(("warm", *run_frontier(root, grid, g, g32, DEVICE, replay=False)))
                 runs[1][2]["replay"] = runs[0][2]["replay"]
+                from portfoliooptgp_tpu_torch.ops import nll
+
                 busy = device_busy(lambda: run_frontier(root, grid, g, g32, DEVICE, replay=False),
                                    "frontier_profile.txt", kernel="trinv")
+                # run_frontier zeroes the counts as it starts: all of them are this run's
+                profiled_launches = nll.LAUNCHES["triangular_inverse"]
         for label, elapsed, q in runs:
             _frontier_report(label, elapsed, q)
             ok, bad = compare_frontier(q, g, g32)
@@ -1954,9 +2155,12 @@ def phase_frontier():
         results[grid] = runs
     warm = results["5y"][1][1]
     if busy["device_s"] > 0:
+        n = profiled_launches
         print(f"  profiled five-year run: {busy['wall_s']:.2f} s wall, device busy "
               f"{busy['device_s']:.3f} s ({100 * busy['device_s'] / warm:.1f}% of the "
-              f"unprofiled warm run), trinv kernel {busy['kernel_s']:.4f} s", flush=True)
+              f"unprofiled warm run), trinv kernel {busy['kernel_s']:.4f} s "
+              f"over its {n} launches, {1e3 * busy['kernel_s'] / max(n, 1):.4f} ms a launch)",
+              flush=True)
     else:
         print("  profiled five-year run: the profiler recorded no device events; device busy "
               "share not measured", flush=True)
@@ -2483,13 +2687,13 @@ def main() -> int:
              replaces="portfoliooptgp_tpu/ops/pallas/blocked_nll.py:70",
              launches=sa["launches"], max_abs_err=errs["blocked_panel"],
              ms=sa["ms"], plain_ms=sa["plain_ms"], bound_ms=sa["bound_ms"],
-             bound_by=sa["bound_by"], library_ms=sa["library_ms"]),
+             bound_by=sa["bound_by"], library_ms=sa["library_ms"], eager_ms=sa["eager_ms"]),
         dict(name="triangular_inverse", route="cuda",
              source="portfoliooptgp_tpu_torch/csrc/trinv.cu",
              replaces="portfoliooptgp_tpu/ops/pallas/nll.py:357",
              launches=front["launches"], max_abs_err=hinv["max_abs_err"],
              ms=hinv["ms"], plain_ms=hinv["plain_ms"], bound_ms=hinv["bound_ms"],
-             bound_by=hinv["bound_by"], library_ms=hinv["library_ms"]),
+             bound_by=hinv["bound_by"], library_ms=hinv["library_ms"], eager_ms=hinv["eager_ms"]),
     ]
     for name, with_w, line in (("dense_nll", False, 135), ("dense_nll_inv", True, 151)):
         tag = "inv" if with_w else "value"

@@ -68,15 +68,21 @@ def blocked_nll_preferred(n: int) -> bool:
 
 # -- the panel factor: plain version and kernel wrapper ---------------------
 
-def factor_panel_plain(panel):
+def factor_panel_plain(panel, out=None):
     """panel (B, nt, pw), pw = min(128, nt), the diagonal block on top →
-    (L panel (B, nt, pw) with zeros above the diagonal, Σ log diag L11 (B,))."""
+    (L panel (B, nt, pw) with zeros above the diagonal, Σ log diag L11 (B,)).
+    With `out` (a (B, nt, pw) view, e.g. of the whole factor) the L panel is
+    written there and `out` is returned."""
     pw = panel.shape[2]
     L11 = linalg.cholesky(panel[:, :pw, :])
     L21 = torch.linalg.solve_triangular(L11.transpose(-1, -2), panel[:, pw:, :],
                                         upper=True, left=False)
     logdet = torch.sum(torch.log(torch.diagonal(L11, dim1=-2, dim2=-1)), dim=-1)
-    return torch.cat([L11, L21], dim=1), logdet
+    Lp = torch.cat([L11, L21], dim=1)
+    if out is None:
+        return Lp, logdet
+    out.copy_(Lp)
+    return out, logdet
 
 
 _LIB = None
@@ -91,15 +97,19 @@ def _lib():
         lib.blocked_panel_launch.restype = ctypes.c_int
         lib.blocked_panel_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
+        lib.blocked_panel_ctas_per_sm.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-def factor_panel_cuda(panel):
+def factor_panel_cuda(panel, out=None):
     """Launch the CUDA panel kernel; same contract as the plain version.
     The panel may be a strided view (unit column stride) of the trailing
-    matrix: the kernel reads it in place."""
+    matrix: the kernel reads it in place. `out`, if given, is a float32
+    (B, nt, pw) view with unit column stride that does not overlap the
+    panel: the kernel writes the L panel straight into it."""
     if panel.device.type != "cuda" or panel.dtype != torch.float32:
         raise TypeError("the panel kernel takes a float32 CUDA tensor, got "
                         f"{panel.dtype} on {panel.device}")
@@ -108,27 +118,33 @@ def factor_panel_cuda(panel):
     if panel.stride(2) != 1:
         panel = panel.contiguous()
     B, nt, pw = panel.shape
-    out = torch.empty((B, nt, pw), dtype=torch.float32, device=panel.device)
+    if out is None:
+        out = torch.empty((B, nt, pw), dtype=torch.float32, device=panel.device)
+    elif (out.shape != panel.shape or out.dtype != torch.float32
+          or out.device != panel.device or out.stride(2) != 1):
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} on {out.device} with strides "
+                         f"{out.stride()} is not a float32 (B, nt, pw) view of unit column "
+                         "stride beside the panel")
     logdet = torch.empty((B,), dtype=torch.float32, device=panel.device)
     with torch.cuda.device(panel.device):
         stream = torch.cuda.current_stream(panel.device).cuda_stream
         rc = _lib().blocked_panel_launch(
             ctypes.c_void_p(panel.data_ptr()), panel.stride(0), panel.stride(1),
-            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(logdet.data_ptr()),
-            B, nt, pw, ctypes.c_void_p(stream))
+            ctypes.c_void_p(out.data_ptr()), out.stride(0), out.stride(1),
+            ctypes.c_void_p(logdet.data_ptr()), B, nt, pw, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"blocked_panel kernel launch failed: CUDA error {rc}")
     LAUNCHES["blocked_panel"] += 1
     return out, logdet
 
 
-def factor_panel(panel):
+def factor_panel(panel, out=None):
     """The kernel's wrapper: CUDA tensors launch the kernel, CPU tensors
     take the plain version."""
     if panel.device.type == "cuda":
-        return factor_panel_cuda(panel)
+        return factor_panel_cuda(panel, out)
     if panel.device.type == "cpu":
-        return factor_panel_plain(panel)
+        return factor_panel_plain(panel, out)
     raise ValueError(f"unsupported device {panel.device}")
 
 
@@ -136,7 +152,8 @@ def factor_panel(panel):
 
 def blocked_cholesky(Ks):
     """Lower Cholesky factor of (B, N, N) SPD matrices by 128-column panels
-    (the panel factor, then a full-fp32 trailing matmul) and Σ log diag L."""
+    (the panel factor, written straight into L, then a full-fp32 trailing
+    matmul) and Σ log diag L."""
     B, N, _ = Ks.shape
     L = torch.zeros_like(Ks)
     logdet = torch.zeros((B,), dtype=Ks.dtype, device=Ks.device)
@@ -144,9 +161,8 @@ def blocked_cholesky(Ks):
     for p0 in range(0, N, PW):
         nt = N - p0
         pw = min(PW, nt)
-        Lp, ld = factor_panel(work[:, :, :pw])
+        Lp, ld = factor_panel(work[:, :, :pw], out=L[:, p0:, p0:p0 + pw])
         logdet = logdet + ld
-        L[:, p0:, p0:p0 + pw] = Lp
         if nt > pw:
             L21 = Lp[:, pw:, :]
             work = work[:, pw:, pw:] - L21 @ L21.transpose(-1, -2)

@@ -2,9 +2,9 @@
 
 Each source is compiled by nvcc into a shared library with a plain C
 interface and loaded with ctypes. Libraries are named by a hash of the
-source and flags and land in `<repo>/build/kernels/` (listed in
-.gitignore; `PORTFOLIOOPTGP_BUILD_DIR` overrides it), so an unchanged
-source is built once per checkout. Nothing here runs at import time: the
+source, the `csrc/*.cuh` headers it includes and the flags, and land in
+`<repo>/build/kernels/` (listed in .gitignore; `PORTFOLIOOPTGP_BUILD_DIR`
+overrides it), so an unchanged source is built once per checkout. Nothing here runs at import time: the
 first launch builds, or `build()` builds every source at once, one nvcc
 process per source, all started together.
 """
@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -45,9 +46,29 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _source_files(name: str) -> list:
+    """The source of `name` and every header of CSRC that it includes,
+    directly or through another header, in the order first met."""
+    files, todo = [], [SOURCES[name]]
+    while todo:
+        f = todo.pop(0)
+        if f in files:
+            continue
+        files.append(f)
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            todo += [inc.decode() for inc in _INCLUDE.findall(fh.read())
+                     if os.path.exists(os.path.join(CSRC, inc.decode()))]
+    return files
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, SOURCES[name]), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in _source_files(name):
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(f.encode() + b"\0" + fh.read())
     return os.path.join(build_dir(), f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -231,28 +231,28 @@ def _lib():
         lib = cuda_build.load("trinv")
         lib.trinv_launch.restype = ctypes.c_int
         lib.trinv_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.trinv_ctas_per_sm.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
 def triangular_inverse_cuda(L):
     """Launch the CUDA kernel; same contract as the plain version. L may be
-    a strided view with unit column stride: the kernel reads it in place."""
+    any strided view (the column-major factors of torch.linalg.cholesky
+    included): the kernel reads it in place."""
     if L.device.type != "cuda" or L.dtype != torch.float32:
         raise TypeError("the triangular-inverse kernel takes a float32 CUDA tensor, got "
                         f"{L.dtype} on {L.device}")
     _check(L)
-    if L.stride(2) != 1:
-        L = L.contiguous()
     B, Np, _ = L.shape
     P = Np // PW
     W = torch.empty((B, P, PW, PW), dtype=torch.float32, device=L.device)
     with torch.cuda.device(L.device):
         stream = torch.cuda.current_stream(L.device).cuda_stream
         rc = _lib().trinv_launch(ctypes.c_void_p(L.data_ptr()), L.stride(0), L.stride(1),
-                                 ctypes.c_void_p(W.data_ptr()), B, P,
+                                 L.stride(2), ctypes.c_void_p(W.data_ptr()), B, P,
                                  ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"triangular_inverse kernel launch failed: CUDA error {rc}")

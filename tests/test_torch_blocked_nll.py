@@ -104,6 +104,27 @@ def test_torch_factor_panel_plain_ragged_panel():
         torch.linalg.cholesky(Ks[:, :72, :72]), dim1=-2, dim2=-1)).sum(-1))
 
 
+def test_torch_factor_panel_plain_writes_into_out():
+    """With `out`, the plain panel factor writes the L panel into that view
+    of a larger factor and returns it, as the kernel does on the card, and
+    leaves the rest of the buffer alone; blocked_cholesky, which passes its
+    view of L, gives the dense factor (float64, rtol 1e-12)."""
+    K, _, noise = _problem(2, 300, seed=5, dtype=np.float64)
+    Ks = torch.tensor(K + noise[:, None, None] * np.eye(300))
+    buf = torch.full((2, 428, 428), 7.0, dtype=torch.float64)
+    view = buf[:, 128:, 128:256]
+    Lo, ldo = tbn.factor_panel_plain(Ks[:, :, :128], out=view)
+    Lp, ldp = tbn.factor_panel_plain(Ks[:, :, :128])
+    assert Lo.data_ptr() == view.data_ptr()
+    assert torch.equal(view, Lp) and torch.equal(ldo, ldp)
+    rest = torch.ones_like(buf, dtype=torch.bool)
+    rest[:, 128:, 128:256] = False
+    assert torch.all(buf[rest] == 7.0)
+    L, ld = tbn.blocked_cholesky(Ks)
+    torch.testing.assert_close(L, torch.linalg.cholesky(Ks), rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(ld, torch.logdet(Ks) / 2, rtol=1e-12, atol=0)
+
+
 def test_torch_blocked_nll_indefinite_gives_nan():
     """An indefinite K + σ²I: NaN in both packages, never a clamp."""
     K, y, noise = _problem(8, 320, seed=4)

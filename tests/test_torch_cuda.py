@@ -162,6 +162,60 @@ def test_torch_cuda_panel_kernel_launch_error_raises(cuda):
         bn.factor_panel_cuda(torch.ones((1, 300, 100), device=cuda))
 
 
+def test_torch_cuda_panel_kernel_ill_conditioned(cuda):
+    """The first panel of an SE Gram matrix of a daily grid + 1e-5·I
+    (N = 875). Two float32 factors of it differ by up to ~6e-3 of max |L|
+    (the summation order is amplified by the conditioning), so the kernel is
+    held by its backward error instead: at most 4× the plain version's (or
+    2e-6 of max |A|, whichever is larger), finite, and Σ log diag within
+    rtol 3e-3 of the plain version's (chip_smoke.check_panel_ill_conditioned)."""
+    import chip_smoke as cs
+
+    before = _panel_launches()
+    cs.check_panel_ill_conditioned(cuda)
+    assert _panel_launches() == before + 1
+
+
+@pytest.mark.parametrize("pivot", [32, 64, 100])
+def test_torch_cuda_panel_kernel_indefinite_pivot(cuda, pivot):
+    """An indefinite pivot at a sub-panel boundary (32, 64) or inside one
+    (100), with A21 rows below: NaN in the log sum and in every entry of
+    L on and below the diagonal from column `pivot` on; the earlier columns
+    finite and within 3e-3 of max |L| of the plain factor of the same
+    columns (chip_smoke.check_panel_indefinite)."""
+    import chip_smoke as cs
+
+    before = _panel_launches()
+    cs.check_panel_indefinite(pivot, cuda)
+    assert _panel_launches() == before + 1
+
+
+def _panel_launches():
+    from portfoliooptgp_tpu_torch.ops import blocked_nll as bn
+
+    return bn.LAUNCHES["blocked_panel"]
+
+
+def test_torch_cuda_panel_kernel_writes_into_out(cuda):
+    """With `out`, a strided view of a larger factor, the kernel writes the
+    L panel there, bit for bit what it returns without `out`, and nothing
+    else of the buffer."""
+    from portfoliooptgp_tpu_torch.ops import blocked_nll as bn
+
+    Ks = _spd(cuda, 3, 619, 4)
+    panel = Ks[:, :, :128]
+    buf = torch.full((3, 875, 875), 7.0, device=cuda)
+    view = buf[:, 256:, 256:384]
+    Lk, ldk = bn.factor_panel(panel)
+    Lo, ldo = bn.factor_panel(panel, out=view)
+    torch.cuda.synchronize()
+    assert Lo.data_ptr() == view.data_ptr()
+    assert torch.equal(view, Lk) and torch.equal(ldo, ldk)
+    rest = torch.ones_like(buf, dtype=torch.bool)
+    rest[:, 256:, 256:384] = False
+    assert torch.all(buf[rest] == 7.0)
+
+
 @pytest.mark.parametrize("B,Np", [(20, 1408), (20, 1024), (20, 256), (20, 128), (8, 128)])
 def test_torch_cuda_trinv_kernel_matches_plain(cuda, B, Np):
     """The triangular-inverse kernel against its plain version at the
@@ -207,6 +261,42 @@ def test_torch_cuda_hinv_nll_matches_cpu(cuda, B, N):
     for g, w in zip(outs[0][1], outs[1][1]):
         scale = max(float(w.abs().max()), 1.0)
         torch.testing.assert_close(g / scale, w / scale, rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("layout", ["column-major", "row-major"])
+@pytest.mark.parametrize("kind", ["nan_diagonal_block", "nan_offdiagonal_block", "zero_pivot"])
+def test_torch_cuda_trinv_kernel_nan_and_inf_pattern(cuda, kind, layout):
+    """A NaN inside a diagonal 32-block (row 40, column 35 of a 128-block),
+    inside an off-diagonal 32-block (row 100, column 10), or a zero pivot
+    (row 50), in two blocks of a (4, 512) batch of column-major factors (as
+    torch.linalg.cholesky returns them) or their row-major copies: the
+    kernel's NaN and inf entries are exactly the plain version's
+    (chip_smoke.check_trinv_pattern)."""
+    import chip_smoke as cs
+    from portfoliooptgp_tpu_torch.ops import nll
+
+    before = nll.LAUNCHES["triangular_inverse"]
+    n_nan, n_inf = cs.check_trinv_pattern(kind, layout, cuda)
+    assert nll.LAUNCHES["triangular_inverse"] == before + 1
+    assert n_inf > 0 if kind == "zero_pivot" else n_nan > 0
+
+
+def test_torch_cuda_trinv_kernel_on_uneven_views(cuda):
+    """The uneven split's calls on views at non-zero offsets of a (20, 1408)
+    factor (its 8 + 2 + 1 panels), one of them holding a NaN: the kernel
+    reads each view in place and matches the plain version, NaN and inf
+    exactly where it has them."""
+    import chip_smoke as cs
+    from portfoliooptgp_tpu_torch.ops import nll
+
+    L = torch.linalg.cholesky(_spd(cuda, 20, 1408, 12).double()).float()
+    L[7, 1024 + 200, 1024 + 150] = float("nan")
+    for lo, hi in cs.UNEVEN_VIEWS:
+        view = L[:, lo:hi, lo:hi]
+        Wk = nll.triangular_inverse_cuda(view)
+        Wp = nll.triangular_inverse_plain(view)
+        torch.cuda.synchronize()
+        cs.check_trinv_equal(f"view [{lo}:{hi}]", Wk, Wp)
 
 
 def test_torch_cuda_trinv_kernel_rejects_bad_input(cuda):

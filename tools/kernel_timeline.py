@@ -1,0 +1,152 @@
+"""Where the time goes inside the panel-factor and triangular-inverse kernels.
+
+Builds a copy of `csrc/blocked_panel.cu` and `csrc/trinv.cu` with clock64()
+marks inserted at the boundaries of their phases (the copies go to
+build/timeline/; the sources are not touched), launches each at its main
+path's shape, and prints, for CTA 0, the SM cycles from the CTA's start to
+each mark, per warp:
+
+- panel (nt = 875, B = 1): `issued` (every cp.async of the staging issued),
+  `staged` (the first sub-panel's columns landed), then for each sub-panel
+  s `a<s>` (diagonal factor), `b<s>` (row solves) and `c<s>` (update), and
+  `end`;
+- trinv (220 blocks): `staged`, then for each row block R `R<R>` (its
+  product done; the first row block of a warp has none) and `S<R>` (its
+  solve done), and `end`.
+
+Run on a machine with an NVIDIA GPU and nvcc, from the repository root:
+
+    python tools/kernel_timeline.py
+
+The marks cost a few cycles each. A kernel edit that moves an anchor makes
+the script stop with the anchor it did not find.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import sys
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+from portfoliooptgp_tpu_torch.ops import cuda_build  # noqa: E402
+
+MARKS = '''
+__device__ long long g_clk[64 * 16];
+#define CLK(n) if ((threadIdx.x & 31) == 0 && blockIdx.x == 0 && blockIdx.y == 0) \\
+    g_clk[(threadIdx.x >> 5) * 16 + (n)] = clock64();
+extern "C" int read_clk(long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, g_clk, sizeof(g_clk));
+}
+'''
+START = 15  # the mark taken as the CTA starts
+
+# (anchor, text, after the anchor?) for each source
+PANEL = [
+    ('#include "hopper_async.cuh"\n', MARKS, True),
+    ("  const int mrows = ncols + ((nrows + 3) & ~3);", "\n  CLK(15);", True),
+    ("  cp_async_wait<1>();  // the first sub-panel's columns", "  CLK(13);\n", False),
+    ("  float ld = 0.0f;  // Σ log diag L11, kept by warp 0\n", "  CLK(14);\n", True),
+    ("    // (b) Rows below the diagonal block", "    CLK(3 * (c0 / SP));\n", False),
+    ("    cp_async_wait<0>();  // the later columns, before the first update reads them\n"
+     "    __syncthreads();\n", "    CLK(3 * (c0 / SP) + 1);\n", True),
+    ("  }\n\n  // Write L21 (every CTA)", "    CLK(3 * (c0 / SP) + 2);\n", False),
+    ("}\n\nstatic size_t smem_bytes", "  CLK(12);\n", False),
+]
+PANEL_LABELS = {13: "issued", 14: "staged", 12: "end",
+                **{3 * s + k: f"{'abc'[k]}{s}" for s in range(4) for k in range(3)}}
+TRINV = [
+    ('#include "hopper_async.cuh"\n', MARKS, True),
+    ("  const float* Lb = L + (size_t)b * sb + (size_t)p * PW * (sr + sc);\n", "  CLK(15);\n",
+     True),
+    ("  cp_async_wait<0>();\n  __syncthreads();\n", "  CLK(14);\n", True),
+    ("      solve<false>(x, M, dg, dy, r0, j);", "      CLK(2 * R + 1);\n", False),
+    ("    // Column j of the row block", "    CLK(2 * R + 2);\n", False),
+    ("}\n\nstatic size_t smem_bytes", "  CLK(12);\n", False),
+]
+TRINV_LABELS = {14: "staged", 12: "end",
+                **{2 * R + k + 1: f"{'RS'[k]}{R}" for R in range(4) for k in range(2)}}
+
+
+def instrumented(name, edits):
+    src_dir = os.path.join(REPO, "build", "timeline")
+    os.makedirs(src_dir, exist_ok=True)
+    with open(os.path.join(cuda_build.CSRC, cuda_build.SOURCES[name])) as fh:
+        src = fh.read()
+    for anchor, text, after in edits:
+        if anchor not in src:
+            raise SystemExit(f"{name}: anchor not found: {anchor!r}")
+        src = src.replace(anchor, anchor + text if after else text + anchor, 1)
+    for header in cuda_build._source_files(name)[1:]:
+        shutil.copy(os.path.join(cuda_build.CSRC, header), src_dir)
+    path = os.path.join(src_dir, f"{name}.cu")
+    with open(path, "w") as fh:
+        fh.write(src)
+    out = os.path.join(src_dir, f"lib{name}_timeline.so")
+    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", out, path], check=True)
+    return ctypes.CDLL(out)
+
+
+def show(lib, title, labels, nwarps):
+    buf = (ctypes.c_longlong * (64 * 16))()
+    torch.cuda.synchronize()
+    if lib.read_clk(buf) != 0:
+        raise SystemExit("reading the marks failed")
+    print(title, flush=True)
+    for w in range(nwarps):
+        row = [buf[w * 16 + n] for n in range(16)]
+        marks = sorted((row[n] - row[START], labels[n]) for n in labels if row[n])
+        print(f"  warp {w}: " + " ".join(f"{lab}={t}" for t, lab in marks), flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("kernel_timeline: no CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    rng = torch.Generator(device="cuda").manual_seed(0)
+    stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)  # noqa: E731
+
+    panel = instrumented("blocked_panel", PANEL)
+    panel.blocked_panel_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    A = torch.randn(875, 875, device="cuda", generator=rng, dtype=torch.float64)
+    Ks = (A @ A.T / 875 + 0.5 * torch.eye(875, device="cuda", dtype=torch.float64)).float()
+    out = torch.empty(875, 128, device="cuda")
+    ld = torch.empty(1, device="cuda")
+    for _ in range(3):  # warm: the last launch is the one read
+        rc = panel.blocked_panel_launch(Ks.data_ptr(), Ks.numel(), 875, out.data_ptr(),
+                                        out.numel(), 128, ld.data_ptr(), 1, 875, 128, stream())
+        if rc != 0:
+            raise SystemExit(f"panel launch failed: CUDA error {rc}")
+    show(panel, "panel nt=875 B=1, CTA 0, SM cycles from its start:", PANEL_LABELS, 8)
+
+    trinv = instrumented("trinv", TRINV)
+    trinv.trinv_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    A = torch.randn(20, 1408, 1408, device="cuda", generator=rng, dtype=torch.float64)
+    L = torch.linalg.cholesky(A @ A.mT / 1408 + 0.5 * torch.eye(1408, device="cuda",
+                                                                dtype=torch.float64)).float()
+    W = torch.empty(20, 11, 128, 128, device="cuda")
+    for _ in range(3):
+        rc = trinv.trinv_launch(L.data_ptr(), L.stride(0), L.stride(1), L.stride(2),
+                                W.data_ptr(), 20, 11, stream())
+        if rc != 0:
+            raise SystemExit(f"trinv launch failed: CUDA error {rc}")
+    show(trinv, "trinv 220 blocks (column-major factors), CTA 0, SM cycles from its start:",
+         TRINV_LABELS, 4)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
