@@ -52,15 +52,15 @@ Phases, each fatal on failure:
      --frontier) by `compare_frontier`, with the launch counts of each
      pipeline run;
   9. hold the dense NLL kernel (`csrc/dense_nll.cu`, with and without W)
-     against its plain version in float32 at the multi-input shapes
-     (random, ill-conditioned and indefinite inputs, NaN where the plain
-     version has it) and batched_nll's values and gradients against CPU
-     copies; time it beside its plain version, the torch.linalg chain and
-     its bound (`phase_dense`); then the multi-input flow on the card,
-     cold then warm — steps 1–3 with the default pair and with
-     (Polynomial, Exponential), fixed and trained likelihood,
-     run_step_4(batched=False), and the 5-asset workflow with the
-     Polynomial pair and trained likelihood — against
+     against its plain version in float32 at the multi-input shapes and
+     tile edges (random, ill-conditioned and indefinite inputs, NaN where
+     the plain version has it) and batched_nll's values and gradients
+     against CPU copies; time it by CUDA-graph replay beside its plain
+     version, the torch.linalg chain and its bound (`phase_dense`); then
+     the multi-input flow on the card, cold then warm — steps 1–3 with
+     the default pair and with (Polynomial, Exponential), fixed and
+     trained likelihood, run_step_4(batched=False), and the 5-asset
+     workflow with the Polynomial pair and trained likelihood — against
      tests/goldens_torch/multi_input_poly*.json (the JAX package's float64
      and float32 runs, written by tools/make_torch_goldens.py
      --multi-input) by `compare_multi_input`, with the launch counts of
@@ -2167,18 +2167,21 @@ def phase_frontier():
     return dict(launches=results["5y"][0][2]["launches"]["triangular_inverse"])
 
 
-DENSE_SHAPES = ((1, 72), (4, 72), (20, 77), (5, 77), (8, 224), (128, 256), (3, 131))
+# The multi-input shapes, the window's top, tile edges (N = 33: one entry
+# past a 32-column tile; B = 1, N = 256: eight whole tiles) and partial tiles.
+DENSE_SHAPES = ((1, 72), (4, 72), (20, 77), (5, 77), (8, 224), (128, 256), (3, 131), (1, 33),
+                (1, 256))
 DENSE_TIMED = ((20, 77), (128, 256))
 
 
 def dense_bound_ms(B, N, with_inverse):
     """Least time for the dense NLL kernel on an H100: the larger of the
     bytes it must move (the lower triangle of K, y and σ² read once; a, the
-    NLL, Σ log diag L and, with W, W's lower triangle written once) over HBM
-    bandwidth and its fp32 operations, B·(N³/3 [+ N³/3] + N²), over the fp32
-    peak."""
+    NLL, Σ log diag L and, with W, all N² entries of W written once) over
+    HBM bandwidth and its fp32 operations, B·(N³/3 [+ N³/3] + N²), over the
+    fp32 peak."""
     tri = N * (N + 1) / 2
-    nbytes = 4 * B * (tri + N + 1 + N + 2 + (tri if with_inverse else 0))
+    nbytes = 4 * B * (tri + N + 1 + N + 2 + (N * N if with_inverse else 0))
     flops = B * (N ** 3 / 3 + (N ** 3 / 3 if with_inverse else 0) + N * N)
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -2205,52 +2208,72 @@ def _dense_problem(kind, B, N, seed):
                  for a in (K, rng.normal(size=(B, N)), noise))
 
 
+def check_dense(label, K, y, noise, indefinite):
+    """Both variants of the dense kernel on (K, y, σ²) against the plain
+    version: a, Σ log diag L and W within VALUE_RTOL of their largest value,
+    or within four times the plain version's own float32 error against its
+    float64 run where that is larger, and NaN exactly where the plain
+    version has it (somewhere in the last model when `indefinite`). Returns
+    each variant's largest absolute error, {with_w: err}."""
+    from portfoliooptgp_tpu_torch.ops import nll
+
+    want64 = nll.factor_solve_inv_plain(K.double(), y.double(), noise.double())
+    want = nll.factor_solve_inv_plain(K, y, noise)
+    worst = {}
+    for with_w in (True, False):
+        _, a, logdet, W = nll.factor_solve_cuda(K, y, noise, with_w)
+        torch.cuda.synchronize()
+        worst[with_w] = 0.0
+        for name, got, ref, ref64 in zip(("a", "logdet", "W"), (a, logdet, W), want, want64):
+            if got is None:
+                continue
+            nan_k, nan_p = torch.isnan(got), torch.isnan(ref)
+            if not torch.equal(nan_k, nan_p):
+                raise AssertionError(f"{label} {name}: NaN pattern differs "
+                                     f"({int(nan_k.sum())} vs {int(nan_p.sum())})")
+            if indefinite and not bool(nan_k[-1].any()):
+                raise AssertionError(f"{label} {name}: no NaN")
+            fin = ~nan_p
+            if not bool(fin.any()):  # B = 1 indefinite: the log-det is NaN
+                continue
+            scale = float(ref[fin].abs().max())
+            own = _max_err(ref[fin], ref64[fin]) / scale
+            err = _max_err(got[fin], ref[fin]) / scale
+            if not (torch.all(torch.isfinite(got[fin])) and err <= max(VALUE_RTOL, 4 * own)):
+                raise AssertionError(f"{label} {name}: normalized err {err:.3e} > "
+                                     f"max({VALUE_RTOL}, 4 x {own:.3e})")
+            worst[with_w] = max(worst[with_w], _max_err(got[fin], ref[fin]))
+    return worst
+
+
 def phase_dense():
     """Phase 9a–b. The dense NLL kernel (both variants) against its plain
     version on the card at DENSE_SHAPES: random, ill-conditioned and
     indefinite inputs; a, Σ log diag L and W within VALUE_RTOL of their
     largest value, or within four times the plain version's own float32
     error against its float64 run where that is larger (the ill-conditioned
-    inputs), and NaN exactly where the plain version has it. Then
-    batched_nll's values and gradients against the same call on CPU copies
-    (phase 2's tolerances). Then the times at DENSE_TIMED: the kernel with
-    and without W, the plain version, the torch.linalg chain (cholesky +
-    solve_triangular, + solve_triangular(L, I) for W) and the bound."""
+    inputs), and NaN exactly where the plain version has it (`check_dense`),
+    then on a transposed and a sliced view of K. Then batched_nll's values
+    and gradients against the same call on CPU copies (phase 2's
+    tolerances). Then the times at DENSE_TIMED (`dense_times`:
+    graph replay, eager beside) and the kernel's occupancy."""
     from portfoliooptgp_tpu_torch.ops import nll
 
     worst = {True: 0.0, False: 0.0}
     for B, N in DENSE_SHAPES:
         for kind in ("random", "ill", "indefinite"):
-            K, y, noise = _dense_problem(kind, B, N, B * 1000 + N)
-            want64 = nll.factor_solve_inv_plain(K.double(), y.double(), noise.double())
-            want = nll.factor_solve_inv_plain(K, y, noise)
-            for with_w in (True, False):
-                _, a, logdet, W = nll.factor_solve_cuda(K, y, noise, with_w)
-                torch.cuda.synchronize()
-                for label, got, ref, ref64 in zip(("a", "logdet", "W"), (a, logdet, W),
-                                                  want, want64):
-                    if got is None:
-                        continue
-                    nan_k, nan_p = torch.isnan(got), torch.isnan(ref)
-                    if not torch.equal(nan_k, nan_p):
-                        raise AssertionError(f"dense {kind} B={B} N={N} {label}: NaN pattern "
-                                             f"differs ({int(nan_k.sum())} vs {int(nan_p.sum())})")
-                    if kind == "indefinite" and not bool(nan_k[-1].any()):
-                        raise AssertionError(f"dense {kind} B={B} N={N} {label}: no NaN")
-                    fin = ~nan_p
-                    if not bool(fin.any()):  # B = 1 indefinite: the log-det is NaN
-                        continue
-                    scale = float(ref[fin].abs().max())
-                    own = _max_err(ref[fin], ref64[fin]) / scale
-                    err = _max_err(got[fin], ref[fin]) / scale
-                    if not (torch.all(torch.isfinite(got[fin]))
-                            and err <= max(VALUE_RTOL, 4 * own)):
-                        raise AssertionError(f"dense {kind} B={B} N={N} {label}: normalized err "
-                                             f"{err:.3e} > max({VALUE_RTOL}, 4 x {own:.3e})")
-                    if kind == "random":
-                        worst[with_w] = max(worst[with_w], _max_err(got[fin], ref[fin]))
+            errs = check_dense(f"dense {kind} B={B} N={N}",
+                               *_dense_problem(kind, B, N, B * 1000 + N), kind == "indefinite")
+            if kind == "random":
+                worst = {w: max(worst[w], errs[w]) for w in worst}
         print(f"check dense B={B} N={N}: both variants match plain on random, ill-conditioned "
               f"and indefinite inputs", flush=True)
+    K, y, noise = _dense_problem("indefinite", 3, 77, 77)
+    check_dense("dense transposed view", K.transpose(1, 2), y, noise, True)
+    big = _dense_problem("indefinite", 3, 81, 81)[0]  # row stride 81
+    check_dense("dense sliced view", big[:, 2:79, 2:79], y, noise, True)
+    print("check dense on a transposed and a sliced view of K (read in place): both variants "
+          "match plain", flush=True)
     for B, N in ((20, 77), (128, 256), (3, 131)):
         K, y, noise = _dense_problem("random", B, N, 7 + N)
         outs = []
@@ -2267,33 +2290,50 @@ def phase_dense():
 
     times = {}
     for B, N in DENSE_TIMED:
-        K, y, noise = _dense_problem("random", B, N, 11)
-        Ks = K + torch.diag_embed(noise[:, None].expand(B, N))
-        eye = torch.eye(N, device=DEVICE).expand(B, N, N)
-
-        def chain(with_w):
-            L = torch.linalg.cholesky(Ks)
-            rhs = torch.cat([y[:, :, None], eye], dim=-1) if with_w else y[:, :, None]
-            return torch.linalg.solve_triangular(L, rhs, upper=False)
-
-        with torch.no_grad():
-            row = {}
-            for with_w in (True, False):
-                tag = "inv" if with_w else "value"
-                row[f"ms_{tag}"] = cuda_ms(lambda: nll.factor_solve_cuda(K, y, noise, with_w))
-                row[f"plain_ms_{tag}"] = cuda_ms(
-                    lambda: (nll.factor_solve_inv_plain if with_w else nll.factor_solve_plain)(
-                        K, y, noise), reps=3, warmup=1)
-                row[f"library_ms_{tag}"] = cuda_ms(lambda: chain(with_w))
-                row[f"bound_{tag}"] = dense_bound_ms(B, N, with_w)
-        times[(B, N)] = row
-        print(f"phase 9 dense B={B} N={N}: kernel with W {row['ms_inv']:.4f} ms, value only "
-              f"{row['ms_value']:.4f} ms; plain {row['plain_ms_inv']:.4f} / "
+        row = times[(B, N)] = dense_times(nll, B, N)
+        print(f"phase 9 dense B={B} N={N} (graph replay): kernel with W {row['ms_inv']:.4f} ms, "
+              f"value only {row['ms_value']:.4f} ms; plain {row['plain_ms_inv']:.4f} / "
               f"{row['plain_ms_value']:.4f} ms; torch.linalg chain {row['library_ms_inv']:.4f} / "
               f"{row['library_ms_value']:.4f} ms; bound {row['bound_inv'][0]:.6f} "
               f"({row['bound_inv'][1]}) / {row['bound_value'][0]:.6f} ms "
-              f"({row['bound_value'][1]})", flush=True)
+              f"({row['bound_value'][1]}); eager (CUDA events around back-to-back calls): "
+              f"kernel {row['eager_ms_inv']:.4f} / {row['eager_ms_value']:.4f} ms, chain "
+              f"{row['library_eager_ms_inv']:.4f} / {row['library_eager_ms_value']:.4f} ms; "
+              f"occupancy {nll._dense_lib().dense_nll_ctas_per_sm(N, 1)} / "
+              f"{nll._dense_lib().dense_nll_ctas_per_sm(N, 0)} CTAs per SM", flush=True)
     return dict(max_abs_err=worst, times=times)
+
+
+def dense_times(nll, B, N):
+    """The dense kernel's times at (B, N) on `_dense_problem("random", B, N,
+    11)`, with and without W: the kernel, the plain version and the
+    torch.linalg chain (cholesky_ex + solve_triangular(L, y), with W
+    solve_triangular(L, [y, I])) by CUDA-graph replay (`graph_ms`); the
+    kernel and the chain (with `cholesky`) eager (`cuda_ms`); and the bound.
+    `nll` is the port's ops.nll module: tools/dense_compare.py passes that of
+    another checkout."""
+    K, y, noise = _dense_problem("random", B, N, 11)
+    Ks = K + torch.diag_embed(noise[:, None].expand(B, N))
+    eye = torch.eye(N, device=DEVICE).expand(B, N, N)
+
+    def chain(with_w, factor):
+        L = factor(Ks)
+        rhs = torch.cat([y[:, :, None], eye], dim=-1) if with_w else y[:, :, None]
+        return torch.linalg.solve_triangular(L, rhs, upper=False)
+
+    row = {}
+    with torch.no_grad():
+        for with_w in (True, False):
+            tag = "inv" if with_w else "value"
+            plain = nll.factor_solve_inv_plain if with_w else nll.factor_solve_plain
+            row[f"ms_{tag}"] = graph_ms(lambda: nll.factor_solve_cuda(K, y, noise, with_w))
+            row[f"eager_ms_{tag}"] = cuda_ms(lambda: nll.factor_solve_cuda(K, y, noise, with_w))
+            row[f"plain_ms_{tag}"] = graph_ms(lambda: plain(K, y, noise), reps=5)
+            row[f"library_ms_{tag}"] = graph_ms(
+                lambda: chain(with_w, lambda A: torch.linalg.cholesky_ex(A)[0]))
+            row[f"library_eager_ms_{tag}"] = cuda_ms(lambda: chain(with_w, torch.linalg.cholesky))
+            row[f"bound_{tag}"] = dense_bound_ms(B, N, with_w)
+    return row
 
 
 def _multi_input_report(label, elapsed, q):
@@ -2697,13 +2737,15 @@ def main() -> int:
     ]
     for name, with_w, line in (("dense_nll", False, 135), ("dense_nll_inv", True, 151)):
         tag = "inv" if with_w else "value"
-        row = dense["times"][(20, 77)]
+        at = {shape: dict(ms=row[f"ms_{tag}"], eager_ms=row[f"eager_ms_{tag}"],
+                          plain_ms=row[f"plain_ms_{tag}"], library_ms=row[f"library_ms_{tag}"],
+                          bound_ms=row[f"bound_{tag}"][0], bound_by=row[f"bound_{tag}"][1])
+              for shape, row in dense["times"].items()}
         kernels.append(dict(
             name=name, route="cuda", source="portfoliooptgp_tpu_torch/csrc/dense_nll.cu",
             replaces=f"portfoliooptgp_tpu/ops/pallas/nll.py:{line}",
             launches=mi["launches"][name], max_abs_err=dense["max_abs_err"][with_w],
-            ms=row[f"ms_{tag}"], plain_ms=row[f"plain_ms_{tag}"], bound_ms=row[f"bound_{tag}"][0],
-            bound_by=row[f"bound_{tag}"][1], library_ms=row[f"library_ms_{tag}"]))
+            **at[(20, 77)], at_128x256=at[(128, 256)]))
     for name, tag, line in (("svgp_gram_fwd", "fwd", 77), ("svgp_gram_bwd", "bwd", 94)):
         tm = gram["times"]
         kernels.append(dict(

@@ -17,42 +17,254 @@
 //   nll_b = 1/2 |a|^2 + logdet_b + 1/2 N log 2 pi.
 // Only the lower triangle of K_b (i >= j) is read, through K's strides. An
 // indefinite pivot gives sqrt of a negative number: NaN, never a clamp or
-// jitter, so the line search rejects the step as on the TPU. Nothing is
-// padded: the TPU kernel pads N to 128 with an identity tail and zero
-// targets (log 1 = 0 and 0^2 add nothing) and B to 8; here any N up to 256
-// and any B are taken, and the 2 pi constant is the real N's.
+// jitter, so the line search rejects the step as on the TPU. From the first
+// indefinite pivot k, a[k:] and the log-det are NaN and W[i][c] is NaN
+// exactly for i >= k, c <= i, as in the column loop of the plain version;
+// W's zeros above the diagonal are written, never computed. The TPU kernel
+// pads N to 128 with an identity tail and B to 8; here any N up to 256 and
+// any B are taken, and the 2 pi constant is the real N's.
 //
-// Design. The column loop of stationary_nll.cu with the build replaced by a
-// read: the packed lower triangle of K_b + s_b I is staged into dynamic
-// shared memory (N(N+1)/2 floats, 131,584 B at N = 256, inside the 232,448 B
-// a block may use, so the launch raises the kernel's dynamic shared-memory
-// limit), then a right-looking Cholesky walks the columns with the forward
-// solve, the log-det and, with the flag, the row operations that turn I into
-// L^{-1} in the same loop (the TPU's nll._blocked_chol fuses them the same
-// way). W is an output and lives in global memory; L never leaves shared
-// memory (the TPU kernel keeps it in VMEM scratch).
+// Design. N is padded to Np = 32 T (T <= 8 tiles) with an identity block,
+// which factors to itself and never reaches a real entry, the log-det or
+// the 2 pi constant. The lower triangle of K_b + s_b I lives in shared memory
+// as T (T + 1) / 2 tiles of 32 x 32, and is factored right-looking in
+// 32-column sub-panels, as the TPU kernel's nll._blocked_chol does with
+// 64-column ones, by the steps of csrc/blocked_panel.cu (chol_tile.cuh):
+//   (a) one warp factors the diagonal tile in registers, a row per lane;
+//   (b) a thread per row below solves that row against the 32 x 32 factor;
+//       y rides along as one more row, so a = L^{-1} y needs no loop of its
+//       own;
+//   (c) the tiles of the trailing matrix take the rank-32 update on 4 x 4
+//       register micro-tiles (a warp per half tile), and y's row its
+//       32-term products.
+// Three barriers a sub-panel, 24 at N = 256, where a column-at-a-time loop
+// takes three a column, 768. (Look-ahead, the next diagonal tile's update
+// and factor beside the rest of (c), was tried: it helped only the
+// value-only kernel at N = 256, and its registers slowed the inverse.)
 //
-// Bound on an H100 (SXM, 700 W): per model N^3/3 flops of factor (+ N^3/3 of
-// inverse) in N dependent column steps. At B = 128, N = 256 with W: 1.4 GFLOP
-// of fp32 (~21 us at 67 TFLOP/s) against ~34 MB of W written and 17 MB of K
-// read (~15 us at 3.35 TB/s): operations bound. At the multi-input shapes
-// (B = 1..20, N = 72..77) a handful of CTAs occupy a handful of the 132 SMs
-// and the time is the latency of N column steps of three barriers each. This
-// first version does nothing about either beyond keeping L on chip and running
-// 1024 threads per CTA; tensor-core trailing updates, TMA staging and a cluster
-// per model are later work.
+// With the flag, W is formed once the factor is done, by the substitution of
+// csrc/trinv.cu: a thread owns a column c of W and computes it row block by
+// row block (J = 0 .. T-1, all columns in step): the products with the
+// earlier row blocks of its column, then the solve against the diagonal
+// tile, the division last, the terms in the substitution's own order and
+// the structural zeros skipped by predicates (never multiplied, so NaN * 0
+// never lands where the plain version has 0). Row block J of W then replaces
+// row block J of L in place (the factor is done with it) and goes out to
+// global memory in coalesced rows, once: W is never read back from global
+// memory. Two barriers a row block. The unrolled product and solve are
+// large, so each has one call site: copies specialised for the masked and
+// the unmasked case were slower (instruction fetch). Running the inverse's
+// row blocks beside the factor's steps was tried too: the factoring warp's
+// pivot chain slowed more than the overlap saved (tools/kernel_timeline.py).
+// Column tile 0's warp does the most work.
+//
+// Rounding is the JAX kernel's: pivots d = sqrt(p) and quotients x / d from
+// one rsqrt estimate and one correction each (chol_tile.cuh: correctly
+// rounded but within ~1e-14 of a tie), never a raw estimate or a
+// reciprocal multiply. Sums of a sub-panel's 32 terms are formed first and
+// then subtracted, as the TPU kernel's boundary products are.
+//
+// Card features.
+// - Shared memory: a tile row is 36 floats (9 float4s, odd), so the row
+//   per lane of (a), (b) and the inverse's writes, and the 8 rows of a
+//   quarter warp in (c), fall in distinct banks; (c)'s column quads, the
+//   inverse's rows of L and the solves' columns of L are warp-wide
+//   broadcasts. The solves read the diagonal tiles transposed (32 x 32
+//   each, written by the factoring warp; one buffer without W). At
+//   N = 256: 36 tiles (165,888 B), the transposes (32,768 B with W, 4,096
+//   without) and 7,296 B of vectors: 205,952 B with W and 177,280 B
+//   without; at N = 77 (T = 3) 45,312 B with W. The launch raises the
+//   kernel's dynamic shared-memory limit once.
+// - Registers: the unrolled 32-row solves and products take 255 a thread
+//   (a few dozen bytes of spills), so one 256-thread CTA an SM at every N;
+//   B = 128 is one wave on 132 SMs.
+// - Asynchronous copies: the lower tiles are staged by 4-byte cp.async
+//   (hopper_async.cuh; K may be any strided view, odd row strides
+//   included), tile column 0 first, so that step 0's (a) and (b) run while
+//   the rest lands; each thread adds s_b to the diagonal entries it copied
+//   once they land, where a plain load of each stalled its warp.
+// - Tensor cores: not used. The port keeps fp32 at full precision (TF32 is
+//   off; the JAX package pins HIGHEST because the factor went indefinite at
+//   single-pass precision), and a tile product would multiply the
+//   structural zeros of the triangles, which breaks the exact NaN pattern.
+//
+// Bound on an H100 (SXM, 700 W): per model N^3/3 flops of factor (+ N^3/3
+// of inverse). At B = 128, N = 256 with W: 1.4 GFLOP of fp32 (~21 us at
+// 67 TFLOP/s) against 17 MB of K read and 34 MB of W written (~15 us at
+// 3.35 TB/s): operations bound. At the multi-input shapes (B = 1..20,
+// N = 72..77) a few CTAs occupy a few of the 132 SMs, and the time is the
+// latency of the chain: three warp factors of 32 dependent pivots, their
+// row solves, and the last row blocks of the inverse
+// (tools/kernel_timeline.py).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 
-#define THREADS 1024
-#define MAX_N 256  // the routing window's padded N (nll.MAX_PALLAS_N)
+#include "chol_tile.cuh"
+#include "hopper_async.cuh"
 
-__device__ __forceinline__ size_t tri(int i) { return (size_t)i * (i + 1) / 2; }
+#define THREADS 256
+#define MAX_N 256            // the routing window's padded N (nll.MAX_PALLAS_N)
+#define LDT (SP + 4)         // row stride of a tile: 36 floats, 9 float4s
+#define TILE (SP * LDT)      // floats a tile
+
+// Tile (R, S), R >= S, of the packed lower triangle of tiles.
+__device__ __forceinline__ int tile_index(int R, int S) { return R * (R + 1) / 2 + S; }
+
+// Stage the tiles of tile columns [s_begin, s_end): the lower triangle by
+// cp.async, zeros above the diagonal and the padding rows' identity by plain
+// stores. Warp w copies rows r = w, w + 8, ... of each tile column, lane l
+// its column l: so diagonal entry (r, r) of a tile is copied by lane r of
+// warp r % 8 (add_noise).
+__device__ __forceinline__ void stage(float* tiles, const float* Kb, long long sr, long long sc,
+                                      int N, int T, int s_begin, int s_end) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int S = s_begin; S < s_end; ++S) {
+    const int j = SP * S + lane;
+    for (int t = warp; t < SP * (T - S); t += THREADS / 32) {
+      const int R = S + t / SP, r = t % SP, i = SP * R + r;
+      float* dst = tiles + tile_index(R, S) * TILE + r * LDT + lane;
+      const float* src = Kb + (long long)i * sr + (long long)j * sc;
+      if (i >= N)
+        *dst = i == j ? 1.0f : 0.0f;
+      else if (j > i)
+        *dst = 0.0f;
+      else
+        cp_async_f32(dst, src);
+    }
+  }
+}
+
+// Add s_b to the diagonal entries of the diagonal tiles [s_begin, s_end) that
+// this thread copied, once its own copies have landed (a plain load of each
+// would stall its warp for a memory round trip): K_ii + s_b, rounded once,
+// before any update, as the plain version forms it.
+__device__ __forceinline__ void add_noise(float* tiles, float nz, int N, int s_begin,
+                                          int s_end) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane % (THREADS / 32) != warp) return;
+  for (int S = s_begin; S < s_end && SP * S + lane < N; ++S)
+    tiles[tile_index(S, S) * TILE + lane * LDT + lane] += nz;
+}
+
+// Forward substitution of one 32-row block against a factored diagonal
+// tile, in place on x: for j = 0 .. 31, x[j] /= L(j, j), then x[m] -= L(m, j)
+// x[j] for m > j: the column loop's own operations in its own order (for a
+// row of L below the tile, x[m] -= L(m, j) L(i, j) is its trailing update).
+// Lt is the tile transposed (row j = column j of L, read as broadcast float4
+// runs), dg and yd its diagonal and the estimates of 1 / diag. Only the
+// rows j >= r0 are taken, by predicates: the rows above (W's structural
+// zeros in column c's own row block, r0 = c % 32) stay as they are and
+// update nothing; r0 = 0 takes every row.
+__device__ __forceinline__ void solve(float (&x)[SP], const float* Lt, const float* dg,
+                                      const float* yd, int r0) {
+#pragma unroll
+  for (int j = 0; j < SP; ++j) {
+    const bool take = j >= r0;
+    const float xj = div_from(x[j], dg[j], yd[j]);
+    x[j] = take ? xj : x[j];
+#pragma unroll
+    for (int q = j / 4; q < SP / 4; ++q) {
+      const float4 v = reinterpret_cast<const float4*>(Lt + j * SP)[q];
+      const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (4 * q + u > j) {
+          const float t = fmaf(-vs[u], xj, x[4 * q + u]);
+          x[4 * q + u] = take ? t : x[4 * q + u];
+        }
+      }
+    }
+  }
+}
+
+// (c) A -= LR LS^T on one half (16 columns) of the tile A, LR and LS the
+// sub-panel's tiles in A's tile row and tile column. Lane (g, h) = (lane % 8,
+// lane / 8) takes rows g + 8 p (p < 4) and columns 16 half + 4 h + q
+// (q < 4): per 4 k, 4 float4 of its rows and 4 of its columns for 64 FMAs.
+// Above a diagonal tile's diagonal the update leaves junk that no real entry
+// reads.
+__device__ __forceinline__ void update_half(float* A, const float* LR, const float* LS,
+                                            int half) {
+  const int lane = threadIdx.x & 31, g = lane & 7, c0 = 16 * half + 4 * (lane >> 3);
+  float acc[4][4] = {};
+#pragma unroll 2
+  for (int k = 0; k < SP; k += 4) {
+    float4 u[4], v[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) u[p] = *reinterpret_cast<const float4*>(LR + (g + 8 * p) * LDT + k);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = *reinterpret_cast<const float4*>(LS + (c0 + q) * LDT + k);
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        acc[p][q] = fmaf(u[p].x, v[q].x, acc[p][q]);
+        acc[p][q] = fmaf(u[p].y, v[q].y, acc[p][q]);
+        acc[p][q] = fmaf(u[p].z, v[q].z, acc[p][q]);
+        acc[p][q] = fmaf(u[p].w, v[q].w, acc[p][q]);
+      }
+  }
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    float4* dst = reinterpret_cast<float4*>(A + (g + 8 * p) * LDT + c0);
+    float4 w = *dst;
+    w.x -= acc[p][0];
+    w.y -= acc[p][1];
+    w.z -= acc[p][2];
+    w.w -= acc[p][3];
+    *dst = w;
+  }
+}
+
+// The inverse's product with an earlier row block S of column c:
+// x[rr] -= sum_m L(32 J + rr, 32 S + m) W(32 S + m, c), m increasing. Wt is
+// column c's entries of W's tile (S, c / 32) (row stride LDT), Lt the tile
+// (J, S) of L, read as broadcast float4 runs. Only the terms m >= m0 are
+// taken, by predicates: in column c's own tile (S = c / 32) m0 = c % 32 skips
+// W's structural zeros above the diagonal; elsewhere m0 = 0.
+__device__ __forceinline__ void product(float (&x)[SP], const float* Wt, const float* Lt,
+                                        int m0) {
+  float w[SP];
+#pragma unroll
+  for (int m = 0; m < SP; ++m) w[m] = Wt[m * LDT];
+#pragma unroll
+  for (int m = 0; m < SP; m += 4) {
+#pragma unroll
+    for (int rr = 0; rr < SP; ++rr) {
+      const float4 v = *reinterpret_cast<const float4*>(Lt + rr * LDT + m);
+      const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float t = fmaf(-vs[u], w[m + u], x[rr]);
+        x[rr] = m + u >= m0 ? t : x[rr];
+      }
+    }
+  }
+}
+
+static size_t smem_floats(int N, bool with_w) {
+  const int T = (N + SP - 1) / SP, Np = SP * T;
+  return (size_t)T * (T + 1) / 2 * TILE + (size_t)(with_w ? T : 1) * SP * SP + 3 * (size_t)Np +
+         SP * SP + 32;
+}
+
+// (a) for tile k: warp 0 factors the diagonal tile, keeps its diagonal, the
+// estimates and its transpose Lt, and adds to the log sum.
+__device__ __forceinline__ void factor_step(float* tiles, float* Lt, float* dg, float* yd,
+                                            float* lt, int k, int N, float& ld) {
+  const int lane = threadIdx.x & 31;
+  float* D = tiles + tile_index(k, k) * TILE;
+  ld += factor_diagonal<LDT>(D, dg + SP * k, yd + SP * k, lt, N - SP * k);
+  float x[SP];
+  load_row(x, D + lane * LDT);
+#pragma unroll
+  for (int c = 0; c < SP; ++c) Lt[c * SP + lane] = x[c];
+}
 
 template <bool WITH_W>
-__global__ void __launch_bounds__(THREADS) dense_nll_kernel(
+__global__ void __launch_bounds__(THREADS, 1) dense_nll_kernel(
     const float* __restrict__ K,      // (B, N, N), strides (sb, sr, sc)
     long long sb, long long sr, long long sc,
     const float* __restrict__ y,      // (B, N), contiguous
@@ -62,107 +274,159 @@ __global__ void __launch_bounds__(THREADS) dense_nll_kernel(
     float* __restrict__ a_out,        // (B, N)
     float* __restrict__ W,            // (B, N, N) when WITH_W
     int N) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const size_t NN = (size_t)N * N;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int T = (N + SP - 1) / SP, Np = SP * T;
 
-  float* a = smem;       // N: y, then L^{-1} y
-  float* col = a + N;    // N: column k of L
-  float* red = col + N;  // 32: block reduction
-  float* L = red + 32;   // N(N+1)/2: packed lower triangle
-  float* Wb = WITH_W ? W + (size_t)b * NN : nullptr;
+  float* tiles = smem;                            // T (T + 1) / 2 tiles of L, then of W
+  float* LT = tiles + T * (T + 1) / 2 * TILE;     // the diagonal tiles of L transposed
+  float* ay = LT + (WITH_W ? T : 1) * SP * SP;    // Np: y, then a = L^{-1} y
+  float* dg = ay + Np;                            // Np: diag L
+  float* yd = dg + Np;                            // Np: the estimates of 1 / diag L
+  float* lt = yd + Np;                            // SP x SP: (a)'s scratch
+  float* red = lt + SP * SP;                      // 32: block reduction
   const float* Kb = K + (size_t)b * sb;
+  // Without W one transpose buffer serves every step: step k's is read in
+  // (b) before step k + 1's is written.
+  auto Lt = [&](int k) { return LT + (WITH_W ? k : 0) * SP * SP; };
 
-  // 1. Stage the packed lower triangle of K_b + s_b I.
+  stage(tiles, Kb, sr, sc, N, T, 0, 1);
+  cp_async_commit();
+  stage(tiles, Kb, sr, sc, N, T, 1, T);
+  cp_async_commit();
   const float nz = noise[b];
-  for (size_t t = tid; t < NN; t += blockDim.x) {
-    const int i = (int)(t / N);
-    const int j = (int)(t - (size_t)i * N);
-    if (j > i) continue;
-    float k = Kb[(size_t)i * sr + (size_t)j * sc];
-    if (i == j) k += nz;
-    L[tri(i) + j] = k;
-  }
-  for (int i = tid; i < N; i += blockDim.x) a[i] = y[(size_t)b * N + i];
-  if (WITH_W)
-    for (size_t t = tid; t < NN; t += blockDim.x) Wb[t] = (t / N == t % N) ? 1.0f : 0.0f;
+  for (int i = tid; i < Np; i += THREADS) ay[i] = i < N ? y[(size_t)b * N + i] : 0.0f;
+  cp_async_wait<1>();  // tile column 0; the rest lands during (a) and (b) of step 0
+  add_noise(tiles, nz, N, 0, 1);
   __syncthreads();
 
-  // 2. Right-looking Cholesky with the solve, log-det and inverse fused.
-  float logdet = 0.0f;
-  for (int k = 0; k < N; ++k) {
-    const float d = sqrtf(L[tri(k) + k]);
-    const float ak = a[k] / d;
-    __syncthreads();  // every thread has read the pivot and a[k]
-    for (int i = k + 1 + tid; i < N; i += blockDim.x) {
-      const float l = L[tri(i) + k] / d;
-      L[tri(i) + k] = l;
-      col[i] = l;
-      a[i] -= l * ak;
-    }
-    if (tid == 0) {
-      L[tri(k) + k] = d;
-      a[k] = ak;
-      logdet += logf(d);
-    }
-    if (WITH_W)
-      for (int c = tid; c <= k; c += blockDim.x) Wb[(size_t)k * N + c] /= d;
-    __syncthreads();  // column k and row k of W are final
-    for (int i = k + 1 + warp; i < N; i += nwarps) {
-      const float li = col[i];
-      float* Li = L + tri(i);
-      for (int j = k + 1 + lane; j <= i; j += 32) Li[j] -= li * col[j];
-    }
-    if (WITH_W) {
-      const float* Wk = Wb + (size_t)k * N;
-      for (int r = k + 1 + warp; r < N; r += nwarps) {
-        const float lr = col[r];
-        float* Wr = Wb + (size_t)r * N;
-        for (int c = lane; c <= k; c += 32) Wr[c] -= lr * Wk[c];
+  // The factor, a = L^{-1} y and the log-det, one 32-column sub-panel a
+  // step, three phases and three barriers a step.
+  float ld = 0.0f;  // sum log diag L, kept by warp 0
+  for (int k = 0; k < T; ++k) {
+    const int base = SP * (k + 1);  // the first row and column after the sub-panel
+    if (warp == 0) factor_step(tiles, Lt(k), dg, yd, lt, k, N, ld);  // (a)
+    __syncthreads();
+
+    {  // (b): the rows below the sub-panel and y's row, a thread each
+      const int i = base + tid;
+      float* row = i < Np ? tiles + tile_index(i / SP, k) * TILE + (i % SP) * LDT
+                          : ay + SP * k;
+      if (i <= Np) {
+        float r[SP];
+        load_row(r, row);
+        solve(r, Lt(k), dg + SP * k, yd + SP * k, 0);
+        store_row(row, r);
       }
     }
-    __syncthreads();  // trailing block updated
+    if (k == 0) {  // the later tile columns, before (c) reads them
+      cp_async_wait<0>();
+      add_noise(tiles, nz, N, 1, T);
+    }
+    __syncthreads();
+
+    // (c): two units a tile pair (R, S), k < S <= R, enumerated row by row,
+    // then y's row.
+    const int n = T - k - 1, units = n * (n + 1) + 1;
+    for (int u = warp; u < units; u += THREADS / 32) {
+      if (u == units - 1) {  // a[j] -= sum_m a[32 k + m] L(j, 32 k + m), j >= base
+        const float4* ak = reinterpret_cast<const float4*>(ay + SP * k);
+        for (int j = base + lane; j < Np; j += 32) {
+          const float4* Lj = reinterpret_cast<const float4*>(
+              tiles + tile_index(j / SP, k) * TILE + (j % SP) * LDT);
+          float s = 0.0f;
+#pragma unroll
+          for (int q = 0; q < SP / 4; ++q) {
+            const float4 v = Lj[q], w = ak[q];
+            s = fmaf(v.x, w.x, s);
+            s = fmaf(v.y, w.y, s);
+            s = fmaf(v.z, w.z, s);
+            s = fmaf(v.w, w.w, s);
+          }
+          ay[j] -= s;
+        }
+        continue;
+      }
+      int p = u >> 1, r = 0;
+      while (p > r) p -= ++r;  // pair p -> (row r, column p) of the trailing tiles
+      const int R = k + 1 + r, S = k + 1 + p;
+      update_half(tiles + tile_index(R, S) * TILE, tiles + tile_index(R, k) * TILE,
+                  tiles + tile_index(S, k) * TILE, u & 1);
+    }
+    __syncthreads();
   }
 
-  // 3. Outputs: a, log-det, and nll = 1/2 |a|^2 + logdet + 1/2 N log 2 pi.
+  // W = L^{-1}: thread c owns column c; row block J of W replaces row block
+  // J of L in the tiles once every thread has read it, and goes out.
+  if (WITH_W) {
+    const int Jc = warp, c = tid, cl = lane;
+    float* Wb = W + (size_t)b * N * N;
+    for (int J = 0; J < T; ++J) {
+      const bool active = c < N && J >= Jc;
+      float x[SP];
+#pragma unroll
+      for (int rr = 0; rr < SP; ++rr) x[rr] = active && SP * J + rr == c ? 1.0f : 0.0f;
+      if (active) {  // one call site each: specialised copies ran slower
+        const float* Wc = tiles + cl;  // column c of W's tiles (S, Jc)
+        for (int S = Jc; S < J; ++S)
+          product(x, Wc + tile_index(S, Jc) * TILE, tiles + tile_index(J, S) * TILE,
+                  S == Jc ? cl : 0);
+        solve(x, Lt(J), dg + SP * J, yd + SP * J, J == Jc ? cl : 0);
+      }
+      __syncthreads();  // every read of L's row block J is done
+      if (active) {
+        float* Wt = tiles + tile_index(J, Jc) * TILE + cl;
+#pragma unroll
+        for (int rr = 0; rr < SP; ++rr) Wt[rr * LDT] = x[rr];
+      }
+      if (c < N) {
+#pragma unroll
+        for (int rr = 0; rr < SP; ++rr)
+          if (SP * J + rr < N) Wb[(size_t)(SP * J + rr) * N + c] = x[rr];  // 0 above the diagonal
+      }
+      __syncthreads();  // row block J of W is in the tiles
+    }
+  }
+
+  // a, the log-det and nll = 1/2 |a|^2 + logdet + 1/2 N log 2 pi.
   float quad = 0.0f;
-  for (int i = tid; i < N; i += blockDim.x) {
-    const float ai = a[i];
+  for (int i = tid; i < N; i += THREADS) {
+    const float ai = ay[i];
     a_out[(size_t)b * N + i] = ai;
     quad += ai * ai;
   }
-  for (int o = 16; o > 0; o >>= 1) quad += __shfl_xor_sync(0xffffffffu, quad, o);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) quad += __shfl_xor_sync(FULL, quad, o);
   if (lane == 0) red[warp] = quad;
   __syncthreads();
   if (tid == 0) {
     float total = 0.0f;
-    for (int w = 0; w < nwarps; ++w) total += red[w];
-    logdet_out[b] = logdet;
-    nll[b] = 0.5f * total + logdet + (float)(0.5 * N * 1.8378770664093453);
+    for (int w = 0; w < THREADS / 32; ++w) total += red[w];
+    logdet_out[b] = ld;
+    nll[b] = 0.5f * total + ld + (float)(0.5 * N * 1.8378770664093453);
   }
 }
 
-static size_t smem_bytes(int N) {
-  return ((size_t)2 * N + 32 + (size_t)N * (N + 1) / 2) * sizeof(float);
+template <bool WITH_W>
+static cudaError_t configure() {
+  static bool configured = false;
+  if (configured) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(dense_nll_kernel<WITH_W>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)(smem_floats(MAX_N, WITH_W) * sizeof(float)));
+  if (e == cudaSuccess) configured = true;
+  return e;
 }
 
 template <bool WITH_W>
 static cudaError_t launch(const float* K, long long sb, long long sr, long long sc,
                           const float* y, const float* noise, float* nll, float* logdet,
                           float* a, float* W, int B, int N, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(N);
-  if (bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(dense_nll_kernel<WITH_W>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-    if (e != cudaSuccess) return e;
-  }
-  dense_nll_kernel<WITH_W><<<B, THREADS, bytes, stream>>>(K, sb, sr, sc, y, noise, nll,
-                                                          logdet, a, W, N);
+  cudaError_t e = configure<WITH_W>();
+  if (e != cudaSuccess) return e;
+  dense_nll_kernel<WITH_W><<<B, THREADS, smem_floats(N, WITH_W) * sizeof(float), stream>>>(
+      K, sb, sr, sc, y, noise, nll, logdet, a, W, N);
   return cudaGetLastError();
 }
 
@@ -178,4 +442,19 @@ extern "C" int dense_nll_launch(const float* K, long long sb, long long sr, long
   cudaError_t e = W ? launch<true>(K, sb, sr, sc, y, noise, nll, logdet, a, W, B, N, s)
                     : launch<false>(K, sb, sr, sc, y, noise, nll, logdet, a, W, B, N, s);
   return (int)e;
+}
+
+// CTAs of the kernel resident on one SM at once at this N (occupancy), or
+// -1 on error.
+extern "C" int dense_nll_ctas_per_sm(int N, int with_w) {
+  if (N <= 0 || N > MAX_N) return -1;
+  int n = -1;
+  const size_t bytes = smem_floats(N, with_w) * sizeof(float);
+  cudaError_t e = with_w ? configure<true>() : configure<false>();
+  if (e != cudaSuccess) return -1;
+  e = with_w ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, dense_nll_kernel<true>, THREADS,
+                                                             bytes)
+             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, dense_nll_kernel<false>,
+                                                             THREADS, bytes);
+  return e == cudaSuccess ? n : -1;
 }

@@ -1,7 +1,7 @@
 // Asynchronous global -> shared copies (cp.async, sm_80 and later) shared by
-// the kernels of csrc/blocked_panel.cu and csrc/trinv.cu.
+// the kernels of csrc/blocked_panel.cu, csrc/trinv.cu and csrc/dense_nll.cu.
 //
-// The copies are 4 bytes wide on purpose: both kernels transpose while they
+// The copies are 4 bytes wide on purpose: the kernels may transpose while they
 // stage (a row of the input lands in a column of the shared tile), and their
 // inputs are strided views whose row strides may be odd (875, 747, ... floats),
 // so a 16-byte copy would need a run-time alignment check on every row and a

@@ -7,8 +7,9 @@ factors a prebuilt K + σ²I of B models, solves against the targets and
 takes Σ log diag L. On CUDA tensors the forward is the hand-written kernel
 `csrc/dense_nll.cu` — the TPU kernel `_nll_kernel` when no input needs a
 gradient (the line-search trials), `_nll_inv_kernel`, which also forms
-W = L⁻¹, when one does; on CPU tensors it is `factor_solve_plain` /
-`factor_solve_inv_plain`, the same column loop in torch. The backward is
+W = L⁻¹, when one does (32-column sub-panels, W formed once after the
+factor); on CPU tensors it is `factor_solve_plain` /
+`factor_solve_inv_plain`, the column loop in torch. The backward is
 the closed form of `_batched_nll_bwd` in full-fp32 torch.matmul (the JAX
 package leaves it to XLA):
 
@@ -64,7 +65,7 @@ def _check_dense(K, y, noise):
 
 
 def _factor_solve_loop(K, y, noise, with_inverse):
-    """The kernel's column loop in torch: (a, Σ log diag L, W or None)."""
+    """The column loop in torch: (a, Σ log diag L, W or None)."""
     _check_dense(K, y, noise)
     B, N, _ = K.shape
     A = torch.tril(K) + torch.diag_embed(noise[:, None].expand(B, N))
@@ -88,7 +89,7 @@ def _factor_solve_loop(K, y, noise, with_inverse):
 
 def factor_solve_plain(K, y, noise):
     """K (B, N, N), y (B, N), noise (B,) → (a = L⁻¹y (B, N), Σ log diag L
-    (B,)) with L L^T = K + σ²I, column by column as the kernel runs it.
+    (B,)) with L L^T = K + σ²I, column by column.
     Only the lower triangle of K is read; an indefinite pivot gives NaN."""
     a, logdet, _ = _factor_solve_loop(K, y, noise, False)
     return a, logdet
@@ -113,6 +114,8 @@ def _dense_lib():
         lib.dense_nll_launch.argtypes = (
             [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 6
             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        lib.dense_nll_ctas_per_sm.restype = ctypes.c_int
+        lib.dense_nll_ctas_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
         _DENSE_LIB = lib
     return _DENSE_LIB
 

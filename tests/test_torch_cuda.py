@@ -1,5 +1,5 @@
 """The CUDA kernels (stationary NLL, blocked panel factor, triangular
-inverse) against their plain PyTorch versions.
+inverse, dense NLL, SVGP gram) against their plain PyTorch versions.
 
 Needs an NVIDIA GPU and nvcc (marker `cuda`); skipped elsewhere. Float32
 on the card with the tolerances of the matching checks in
@@ -368,6 +368,43 @@ def test_torch_cuda_dense_nll_matches_cpu(cuda, B, N):
     for g, w in zip(outs[0][1], outs[1][1]):
         scale = max(float(w.abs().max()), 1.0)
         torch.testing.assert_close(g / scale, w / scale, rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("with_w", [False, True], ids=["value", "inverse"])
+@pytest.mark.parametrize("kind", ["random", "indefinite"])
+@pytest.mark.parametrize("N", [1, 31, 32, 33, 64, 65, 255, 256])
+def test_torch_cuda_dense_kernel_tile_edges(cuda, N, kind, with_w):
+    """The dense kernel at the edges of its 32-column tiles against the plain
+    version at phase_dense's tolerances, the NaN pattern equal
+    (chip_smoke.check_dense; the indefinite model's trailing half shifted
+    by -5 I, so at N = 1 its one pivot is negative)."""
+    import chip_smoke as cs
+
+    from portfoliooptgp_tpu_torch.ops import nll
+
+    K, y, noise = cs._dense_problem(kind, 3, N, 500 + N)
+    if kind == "indefinite" and N == 1:
+        K[-1] -= 10.0
+    key = "dense_nll_inv" if with_w else "dense_nll"
+    before = nll.LAUNCHES[key]
+    errs = cs.check_dense(f"dense {kind} N={N}", K, y, noise, kind == "indefinite")
+    assert nll.LAUNCHES[key] >= before + 1 and np.isfinite(errs[with_w])
+
+
+@pytest.mark.parametrize("view", ["transposed", "sliced"])
+def test_torch_cuda_dense_kernel_reads_strided_views(cuda, view):
+    """K as a transposed view or a principal slice (row stride 81), read in
+    place: both variants match the plain version on the same view, NaN
+    pattern included (chip_smoke.check_dense)."""
+    import chip_smoke as cs
+
+    K, y, noise = cs._dense_problem("indefinite", 3, 77, 77)
+    if view == "transposed":
+        K = K.transpose(1, 2)
+    else:
+        K = cs._dense_problem("indefinite", 3, 81, 81)[0][:, 2:79, 2:79]
+    assert not K.is_contiguous()
+    cs.check_dense(f"dense {view} view", K, y, noise, True)
 
 
 def test_torch_cuda_dense_kernel_rejects_bad_input(cuda):

@@ -18,7 +18,10 @@ def _copy_csrc(tmp_path, monkeypatch):
 
 
 def test_torch_cuda_build_sources_list_their_headers():
-    assert cuda_build._source_files("blocked_panel") == ["blocked_panel.cu", "hopper_async.cuh"]
+    assert cuda_build._source_files("blocked_panel") == ["blocked_panel.cu", "chol_tile.cuh",
+                                                         "hopper_async.cuh"]
+    assert cuda_build._source_files("dense_nll") == ["dense_nll.cu", "chol_tile.cuh",
+                                                     "hopper_async.cuh"]
     assert cuda_build._source_files("trinv") == ["trinv.cu", "hopper_async.cuh"]
     assert cuda_build._source_files("stationary_nll") == ["stationary_nll.cu"]
     for name in cuda_build.SOURCES:
@@ -28,7 +31,7 @@ def test_torch_cuda_build_sources_list_their_headers():
 
 def test_torch_cuda_build_header_edit_changes_library_path(tmp_path, monkeypatch):
     """Editing a header's bytes in a copy of csrc/ moves the library path of
-    the two sources that include it, and of no other source; editing a
+    the three sources that include it, and of no other source; editing a
     source moves its own path only."""
     dst = _copy_csrc(tmp_path, monkeypatch)
     before = {name: cuda_build.library_path(name) for name in cuda_build.SOURCES}
@@ -36,9 +39,21 @@ def test_torch_cuda_build_header_edit_changes_library_path(tmp_path, monkeypatch
         fh.write(b"// edited\n")
     after = {name: cuda_build.library_path(name) for name in cuda_build.SOURCES}
     changed = {name for name in cuda_build.SOURCES if before[name] != after[name]}
-    assert changed == {"blocked_panel", "trinv"}
+    assert changed == {"blocked_panel", "trinv", "dense_nll"}
     with open(dst / "dense_nll.cu", "ab") as fh:
         fh.write(b"// edited\n")
     again = {name: cuda_build.library_path(name) for name in cuda_build.SOURCES}
     assert {name for name in cuda_build.SOURCES if again[name] != after[name]} == {"dense_nll"}
     assert all(p.startswith(str(tmp_path / "build")) for p in again.values())
+
+
+def test_torch_cuda_build_tile_header_edit_moves_its_two_sources(tmp_path, monkeypatch):
+    """The warp-factor header chol_tile.cuh is shared by the panel factor and
+    the dense NLL: editing it moves their library paths and no other."""
+    dst = _copy_csrc(tmp_path, monkeypatch)
+    before = {name: cuda_build.library_path(name) for name in cuda_build.SOURCES}
+    with open(dst / "chol_tile.cuh", "ab") as fh:
+        fh.write(b"// edited\n")
+    after = {name: cuda_build.library_path(name) for name in cuda_build.SOURCES}
+    assert {name for name in cuda_build.SOURCES
+            if before[name] != after[name]} == {"blocked_panel", "dense_nll"}

@@ -179,7 +179,10 @@ def test_torch_run_arima_and_sequential_step_4(market):
 def test_torch_walk_forward_warm_start_matches_jax():
     """warm_start: day 0's restarts trained to convergence, then every day
     polished from them (warm_maxiter default max(maxiter // 4, 10)); 4 days
-    × 2 restarts, float64, the tolerances of the cold test above."""
+    × 2 restarts, float64. The polish stops at its 15-iteration cap short of
+    convergence, where the two L-BFGS implementations part at rounding
+    level, so the losses are held at rtol 1e-6, the repo's tolerance for
+    L-BFGS-trained losses; the means and variances as in the cold test."""
     X, Y = _series(seed=2)
     kw = dict(restart_noise_inits=(1e-3, 1e-1), maxiter=60, warm_start=True)
     jres = _jitted_walk_forward(
@@ -188,7 +191,7 @@ def test_torch_walk_forward_warm_start_matches_jax():
     tres = twf.batched_walk_forward(
         X, Y, 36, lambda v: tgpr.GPR.create(tk.composite_kernel(2, **CPU64), v),
         device="cpu", dtype=torch.float64, **kw)
-    np.testing.assert_allclose(tres.losses.numpy(), np.asarray(jres.losses), rtol=1e-8)
+    np.testing.assert_allclose(tres.losses.numpy(), np.asarray(jres.losses), rtol=1e-6)
     np.testing.assert_allclose(tres.f_mean.numpy(), np.asarray(jres.f_mean), rtol=1e-4, atol=1e-8)
     np.testing.assert_allclose(tres.f_var.numpy(), np.asarray(jres.f_var), rtol=1e-4, atol=1e-12)
 

@@ -1,6 +1,8 @@
-"""Where the time goes inside the panel-factor and triangular-inverse kernels.
+"""Where the time goes inside the panel-factor, triangular-inverse and dense
+NLL kernels.
 
-Builds a copy of `csrc/blocked_panel.cu` and `csrc/trinv.cu` with clock64()
+Builds a copy of `csrc/blocked_panel.cu`, `csrc/trinv.cu` and
+`csrc/dense_nll.cu` with clock64()
 marks inserted at the boundaries of their phases (the copies go to
 build/timeline/; the sources are not touched), launches each at its main
 path's shape, and prints, for CTA 0, the SM cycles from the CTA's start to
@@ -12,7 +14,12 @@ each mark, per warp:
   `end`;
 - trinv (220 blocks): `staged`, then for each row block R `R<R>` (its
   product done; the first row block of a warp has none) and `S<R>` (its
-  solve done), and `end`.
+  solve done), and `end`;
+- dense NLL at (20, 77) and (128, 256), value only and with W: `staged`,
+  then for each sub-panel k the warp's own work of `a<k>` (diagonal
+  factor: warp 0), `b<k>` (row solves) and `c<k>` (updates), each taken
+  before the barrier that ends its phase, then for each row block J of W
+  `W<J>` (the warp's columns computed), and `end`.
 
 Run on a machine with an NVIDIA GPU and nvcc, from the repository root:
 
@@ -37,41 +44,63 @@ sys.path.insert(0, REPO)
 
 from portfoliooptgp_tpu_torch.ops import cuda_build  # noqa: E402
 
-MARKS = '''
-__device__ long long g_clk[64 * 16];
+SLOTS = 64  # marks per warp
+MARKS = f'''
+__device__ long long g_clk[32 * {SLOTS}];
 #define CLK(n) if ((threadIdx.x & 31) == 0 && blockIdx.x == 0 && blockIdx.y == 0) \\
-    g_clk[(threadIdx.x >> 5) * 16 + (n)] = clock64();
-extern "C" int read_clk(long long* host) {
+    g_clk[(threadIdx.x >> 5) * {SLOTS} + (n)] = clock64();
+extern "C" int read_clk(long long* host) {{
   return (int)cudaMemcpyFromSymbol(host, g_clk, sizeof(g_clk));
-}
+}}
+extern "C" int clear_clk(void) {{
+  static const long long zeros[32 * {SLOTS}] = {{}};
+  return (int)cudaMemcpyToSymbol(g_clk, zeros, sizeof(g_clk));
+}}
 '''
-START = 15  # the mark taken as the CTA starts
+START = 63  # the mark taken as the CTA starts
 
 # (anchor, text, after the anchor?) for each source
 PANEL = [
     ('#include "hopper_async.cuh"\n', MARKS, True),
-    ("  const int mrows = ncols + ((nrows + 3) & ~3);", "\n  CLK(15);", True),
-    ("  cp_async_wait<1>();  // the first sub-panel's columns", "  CLK(13);\n", False),
-    ("  float ld = 0.0f;  // Σ log diag L11, kept by warp 0\n", "  CLK(14);\n", True),
+    ("  const int mrows = ncols + ((nrows + 3) & ~3);", "\n  CLK(63);", True),
+    ("  cp_async_wait<1>();  // the first sub-panel's columns", "  CLK(61);\n", False),
+    ("  float ld = 0.0f;  // Σ log diag L11, kept by warp 0\n", "  CLK(62);\n", True),
     ("    // (b) Rows below the diagonal block", "    CLK(3 * (c0 / SP));\n", False),
     ("    cp_async_wait<0>();  // the later columns, before the first update reads them\n"
      "    __syncthreads();\n", "    CLK(3 * (c0 / SP) + 1);\n", True),
     ("  }\n\n  // Write L21 (every CTA)", "    CLK(3 * (c0 / SP) + 2);\n", False),
-    ("}\n\nstatic size_t smem_bytes", "  CLK(12);\n", False),
+    ("}\n\nstatic size_t smem_bytes", "  CLK(60);\n", False),
 ]
-PANEL_LABELS = {13: "issued", 14: "staged", 12: "end",
+PANEL_LABELS = {61: "issued", 62: "staged", 60: "end",
                 **{3 * s + k: f"{'abc'[k]}{s}" for s in range(4) for k in range(3)}}
 TRINV = [
     ('#include "hopper_async.cuh"\n', MARKS, True),
-    ("  const float* Lb = L + (size_t)b * sb + (size_t)p * PW * (sr + sc);\n", "  CLK(15);\n",
+    ("  const float* Lb = L + (size_t)b * sb + (size_t)p * PW * (sr + sc);\n", "  CLK(63);\n",
      True),
-    ("  cp_async_wait<0>();\n  __syncthreads();\n", "  CLK(14);\n", True),
+    ("  cp_async_wait<0>();\n  __syncthreads();\n", "  CLK(62);\n", True),
     ("      solve<false>(x, M, dg, dy, r0, j);", "      CLK(2 * R + 1);\n", False),
     ("    // Column j of the row block", "    CLK(2 * R + 2);\n", False),
-    ("}\n\nstatic size_t smem_bytes", "  CLK(12);\n", False),
+    ("}\n\nstatic size_t smem_bytes", "  CLK(60);\n", False),
 ]
-TRINV_LABELS = {14: "staged", 12: "end",
+TRINV_LABELS = {62: "staged", 60: "end",
                 **{2 * R + k + 1: f"{'RS'[k]}{R}" for R in range(4) for k in range(2)}}
+
+DENSE = [
+    ('#include "hopper_async.cuh"\n', MARKS, True),
+    ("  const float* Kb = K + (size_t)b * sb;\n", "  CLK(63);\n", True),
+    ("(a) and (b) of step 0\n  add_noise(tiles, nz, N, 0, 1);\n  __syncthreads();\n",
+     "  CLK(62);\n", True),
+    ("    if (warp == 0) factor_step(tiles, Lt(k), dg, yd, lt, k, N, ld);  // (a)\n",
+     "    CLK(3 * k);\n", True),
+    ("    if (k == 0) {  // the later tile columns", "    CLK(3 * k + 1);\n", False),
+    ("    __syncthreads();\n  }\n\n  // W = L^{-1}", "    CLK(3 * k + 2);\n", False),
+    ("      __syncthreads();  // every read of L's row block J is done",
+     "      CLK(24 + J);\n", False),
+    ("}\n\ntemplate <bool WITH_W>\nstatic cudaError_t configure()", "  CLK(60);\n", False),
+]
+DENSE_LABELS = {62: "staged", 60: "end",
+                **{3 * k + i: f"{'abc'[i]}{k}" for k in range(8) for i in range(3)},
+                **{24 + J: f"W{J}" for J in range(8)}}
 
 
 def instrumented(name, edits):
@@ -94,13 +123,13 @@ def instrumented(name, edits):
 
 
 def show(lib, title, labels, nwarps):
-    buf = (ctypes.c_longlong * (64 * 16))()
+    buf = (ctypes.c_longlong * (32 * SLOTS))()
     torch.cuda.synchronize()
     if lib.read_clk(buf) != 0:
         raise SystemExit("reading the marks failed")
     print(title, flush=True)
     for w in range(nwarps):
-        row = [buf[w * 16 + n] for n in range(16)]
+        row = [buf[w * SLOTS + n] for n in range(SLOTS)]
         marks = sorted((row[n] - row[START], labels[n]) for n in labels if row[n])
         print(f"  warp {w}: " + " ".join(f"{lab}={t}" for t, lab in marks), flush=True)
 
@@ -145,6 +174,31 @@ def main() -> int:
             raise SystemExit(f"trinv launch failed: CUDA error {rc}")
     show(trinv, "trinv 220 blocks (column-major factors), CTA 0, SM cycles from its start:",
          TRINV_LABELS, 4)
+
+    dense = instrumented("dense_nll", DENSE)
+    dense.dense_nll_launch.argtypes = (
+        [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 6
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    for B, N in ((20, 77), (128, 256)):
+        A = torch.randn(B, N, N, device="cuda", generator=rng, dtype=torch.float64)
+        K = (A @ A.mT / N + 0.5 * torch.eye(N, device="cuda", dtype=torch.float64)).float()
+        y = torch.randn(B, N, device="cuda", generator=rng)
+        noise = torch.full((B,), 0.1, device="cuda")
+        outs = [torch.empty(B, device="cuda"), torch.empty(B, device="cuda"),
+                torch.empty(B, N, device="cuda")]
+        W = torch.empty(B, N, N, device="cuda")
+        for with_w in (False, True):
+            if dense.clear_clk() != 0:
+                raise SystemExit("clearing the marks failed")
+            for _ in range(3):
+                rc = dense.dense_nll_launch(K.data_ptr(), K.stride(0), K.stride(1), K.stride(2),
+                                            y.data_ptr(), noise.data_ptr(),
+                                            *(t.data_ptr() for t in outs),
+                                            W.data_ptr() if with_w else None, B, N, stream())
+                if rc != 0:
+                    raise SystemExit(f"dense launch failed: CUDA error {rc}")
+            show(dense, f"dense NLL ({B}, {N}) {'with W' if with_w else 'value only'}, CTA 0, "
+                 "SM cycles from its start:", DENSE_LABELS, 8)
     return 0
 
 
