@@ -12,13 +12,23 @@ Phases, each fatal on failure:
      α, noise and the d2 matrices (normalized atol 2e-2), the tolerances of
      the matching checks in tools/smoke_tpu.py — for the 7 families, prod
      and sum, an ARD atom, a partial mask, the walk-forward shape and the
-     headline shape;
+     headline shape; then (2b) at the tile kernel's edges, N in {1, 31, 32,
+     33, 64, 65, 255, 256}, and past it (N = 300, the column loop; N = 400,
+     its workspace): with and without W, unmasked, masked (a mask that
+     empties whole tiles) and indefinite (NaN where the plain version has
+     it), each launch on the kernel its N routes to (`phase_stationary_edges`);
   3. headline: value+grad of `batched_neg_log_marginal_likelihood` at
-     B=128 SE models, N=256, float32, through the `fused_stationary` tier;
-     times of the kernel, its plain version and a torch.linalg yardstick;
+     B=128 SE models, N=256, float32, through the `fused_stationary` tier on
+     the tile kernel; the stationary kernel's times with and without W at
+     the headline, the weekly and monthly menus' (1, 175) and (1, 40) and
+     frontier grid A's (20, 262), beside its plain version, the
+     torch.linalg chain and its bound, by CUDA-graph replay and eager
+     (`stationary_times`);
   4. end to end: the 5-asset portfolio workflow (walk-forward GP fit,
      ARIMA, correlations, 5 strategies, backtest) on the card in float32,
-     cold then warm, checked against tests/goldens/portfolio_e2e_goldens.json;
+     cold then warm, checked against tests/goldens/portfolio_e2e_goldens.json,
+     with the tile kernel's launches; then the kernel's times at the
+     walk-forward's (5, 77), masked;
   5. hold the blocked tier's panel kernel against its plain version in
      float32: the L panel and Σ log diag at every panel height of N = 875
      (B = 1 and 8), and the blocked NLL's values and gradients at N = 875
@@ -996,30 +1006,201 @@ def check_single(name, family, B, N, seed):
     return _max_err(outs[0][0], outs[1][0])
 
 
-def time_forward(families, dims, B, N, masked, seed, counter, with_inverse=True):
-    """(kernel ms, plain ms, torch.linalg yardstick ms) of the forward at
-    one shape, with W when `with_inverse` (as the value+grad step runs it)."""
+# The stationary kernels' tile edges (N = 32 T and one row either side) and
+# two N past the tile kernel's 256: one where the column loop's packed factor
+# fits shared memory, one where it takes the global-memory workspace.
+STATIONARY_EDGES = (1, 31, 32, 33, 64, 65, 255, 256)
+STATIONARY_COLUMN_NS = (300, 400)
+# The shapes timed (`stationary_times`): label → (families, dims, B, N, masked).
+STATIONARY_TIMED = {
+    "walk-forward": (("matern12", "matern12"), (1, 1), 5, 77, True),
+    "headline": (("se",), (1,), 128, 256, False),
+    "weekly menu": (("se",), (1,), 1, 175, False),
+    "monthly menu": (("se",), (1,), 1, 40, False),
+    "frontier grid A": (("se",), (1,), 20, 262, False),  # the column loop
+}
+
+
+def stationary_route(N):
+    """The stationary source's kernel that runs at N: 'tile' or 'column'."""
     from portfoliooptgp_tpu_torch.ops import stationary_nll as st
 
-    d2s, err, vs, ls, als, noise, mask = general_operands(families, dims, B, N, masked, seed)
-    combine = "prod"
-    D2, V, S, A = (torch.stack(d2s), torch.stack(vs), 1.0 / torch.stack(ls) ** 2,
-                   torch.stack(als))
-    m = mask if masked else None
-    args = (families, combine, dims, D2, err, V, S, A, noise, m, with_inverse)
-    eye = torch.eye(N, device=DEVICE)
+    return "tile" if N <= st.MAX_TILE_N else "column"
 
-    def library():
+
+def launches_since(before):
+    """Launches of the stationary source's tile kernel and column loop since
+    `before` (an earlier `stationary_nll.kernel_launches()`)."""
+    from portfoliooptgp_tpu_torch.ops import stationary_nll as st
+
+    now = st.kernel_launches()
+    return {k: now[k] - before[k] for k in now}
+
+
+def check_stationary(label, families, dims, combine, N, keeps, seed, indefinite=False):
+    """Both variants of the stationary kernel (with and without W) against
+    the plain version on general_operands' inputs, model b keeping its first
+    keeps[b] rows (mask None when every model keeps all N). Models the plain
+    version factors: the NLL, a and W within VALUE_RTOL of their largest
+    value, or within four times the plain version's own float32 error
+    against its float64 run where that is larger. Models whose factor fails
+    (the plain version's NLL is NaN): the kernel's NLL is NaN, and a and W
+    are NaN exactly where the column loop (ops.nll's plain dense version, on
+    the same K) has NaN. With `indefinite` the last model is made so (its
+    linear atom's variance -3, and at N = 1 its noise -10) and must fail.
+    Each launch must run the kernel that N routes to. Returns the largest
+    absolute error over both variants."""
+    from portfoliooptgp_tpu_torch.ops import nll
+    from portfoliooptgp_tpu_torch.ops import stationary_nll as st
+
+    B = len(keeps)
+    d2s, err, vs, ls, als, noise, _ = general_operands(families, dims, B, N, False, seed)
+    mask = (torch.arange(N, device=DEVICE)[None, :]
+            < torch.tensor(keeps, device=DEVICE)[:, None]).float()
+    err = err * mask
+    m = None if min(keeps) == N else mask
+    if indefinite:
+        vs[families.index("linear")][-1] = -3.0
+        if N == 1:
+            noise[-1] = -10.0
+    D2, V, S, A = torch.stack(d2s), torch.stack(vs), 1.0 / torch.stack(ls) ** 2, torch.stack(als)
+    args = (families, combine, dims, D2, err, V, S, A, noise, m)
+    with torch.no_grad():
+        want = st.stationary_nll_forward_plain(*args, True)
+        want64 = st.stationary_nll_forward_plain(
+            families, combine, dims, *(x.double() for x in (D2, err, V, S, A, noise)),
+            None if m is None else m.double(), True)
         K = st.build_general_plain(families, combine, dims, D2, V, S, A, noise, m)
-        L = torch.linalg.cholesky(K)
-        rhs = torch.cat([err[:, :, None], eye.expand(B, N, N)], dim=-1)
+        loop = nll.factor_solve_inv_plain(K, err, torch.zeros_like(noise)) \
+            if N <= nll.MAX_PALLAS_N else None
+    bad = torch.isnan(want[0])
+    if indefinite and not bool(bad[-1]):
+        raise AssertionError(f"{label}: the indefinite model factors in the plain version")
+    route = stationary_route(N)
+    worst = 0.0
+    for with_w in (True, False):
+        before = st.kernel_launches()
+        with torch.no_grad():
+            got = st.stationary_nll_forward_cuda(*args, with_w, "stationary_nll_general")
+        torch.cuda.synchronize()
+        ran = launches_since(before)
+        if ran[route] != 1 or sum(ran.values()) != 1:
+            raise AssertionError(f"{label}: launched {ran}, not the {route} kernel once")
+        if (got[1] is not None) != with_w:
+            raise AssertionError(f"{label}: W returned {got[1] is not None}, asked {with_w}")
+        if not torch.equal(torch.isnan(got[0]), bad):
+            raise AssertionError(f"{label}: NLL NaN pattern {torch.isnan(got[0]).tolist()}, "
+                                 f"plain {bad.tolist()}")
+        for name, g, ref, ref64, lp in zip(("nll", "W", "a"), got, want, want64,
+                                           (None, None if loop is None else loop[2],
+                                            None if loop is None else loop[0])):
+            if g is None:
+                continue
+            if bool(bad.any()) and lp is not None and not torch.equal(torch.isnan(g[bad]),
+                                                                      torch.isnan(lp[bad])):
+                raise AssertionError(f"{label} {name}: NaN pattern of the failed models differs "
+                                     "from the column loop's")
+            ok = ~bad
+            if not bool(ok.any()):
+                continue
+            g, ref, ref64 = g[ok], ref[ok], ref64[ok]
+            scale = max(float(ref.abs().max()), 1e-30)
+            own = _max_err(ref, ref64) / scale
+            e = _max_err(g, ref) / scale
+            if not (torch.all(torch.isfinite(g)) and e <= max(VALUE_RTOL, 4 * own)):
+                raise AssertionError(f"{label} {name}: normalized err {e:.3e} > "
+                                     f"max({VALUE_RTOL}, 4 x {own:.3e})")
+            worst = max(worst, _max_err(g, ref))
+    return worst
+
+
+def phase_stationary_edges():
+    """Phase 2b. The stationary kernels at the tile kernel's edges
+    (STATIONARY_EDGES) and past it (STATIONARY_COLUMN_NS: the column loop,
+    then its workspace): both variants against the plain version
+    (`check_stationary`) unmasked, with prefix masks of which the last empties
+    every tile past its first (N >= 64), and with an indefinite last model;
+    values and gradients through autograd (`check_general`), masked and
+    unmasked. Returns the largest absolute error."""
+    worst = 0.0
+    for i, N in enumerate(STATIONARY_EDGES + STATIONARY_COLUMN_NS):
+        seed = 40 + i
+        worst = max(
+            worst,
+            check_stationary(f"edge N={N} unmasked se*matern32", ("se", "matern32"), (1, 1),
+                             "prod", N, (N, N, N), seed),
+            check_stationary(f"edge N={N} masked matern12*matern12", ("matern12", "matern12"),
+                             (1, 1), "prod", N, (N, (2 * N) // 3, N // 8), seed),
+            check_stationary(f"edge N={N} indefinite se+linear", ("se", "linear"), (1, 1),
+                             "sum", N, (N, N, N), seed, indefinite=True),
+            check_general(f"edge N={N} grad se", ("se",), (1,), "prod", 3, N, False, seed),
+            check_general(f"edge N={N} grad masked matern12*matern12", ("matern12", "matern12"),
+                          (1, 1), "prod", 3, N, True, seed))
+        print(f"check stationary N={N} ({stationary_route(N)} kernel): both variants match "
+              f"plain unmasked, masked and indefinite (NaN patterns equal)", flush=True)
+    return worst
+
+
+def stationary_times(st, families, dims, B, N, masked, seed=31):
+    """The stationary kernel's times on general_operands(..., seed) at one
+    shape, with and without W: the kernel, the plain version and the
+    torch.linalg chain (K built by build_general_plain, cholesky_ex,
+    solve_triangular(L, err), with W solve_triangular(L, [err, I])) by
+    CUDA-graph replay (`graph_ms`); the kernel and the chain (with
+    `cholesky`) eager (`cuda_ms`); and the bound. `st` is the port's
+    ops.stationary_nll module: tools/stationary_compare.py passes that of
+    another checkout."""
+    d2s, err, vs, ls, als, noise, mask = general_operands(families, dims, B, N, masked, seed)
+    D2, V, S, A = torch.stack(d2s), torch.stack(vs), 1.0 / torch.stack(ls) ** 2, torch.stack(als)
+    m = mask if masked else None
+    eye = torch.eye(N, device=DEVICE).expand(B, N, N)
+    counter = "stationary_nll" if len(families) == 1 and not masked else "stationary_nll_general"
+
+    def chain(with_w, factor):
+        K = st.build_general_plain(families, "prod", dims, D2, V, S, A, noise, m)
+        L = factor(K)
+        rhs = torch.cat([err[:, :, None], eye], dim=-1) if with_w else err[:, :, None]
         return torch.linalg.solve_triangular(L, rhs, upper=False)
 
+    row = {}
     with torch.no_grad():
-        k = cuda_ms(lambda: st.stationary_nll_forward_cuda(*args, counter))
-        p = cuda_ms(lambda: st.stationary_nll_forward_plain(*args))
-        lib = cuda_ms(library)
-    return k, p, lib
+        for with_w in (True, False):
+            tag = "inv" if with_w else "value"
+            args = (families, "prod", dims, D2, err, V, S, A, noise, m, with_w)
+            row[f"ms_{tag}"] = graph_ms(lambda: st.stationary_nll_forward_cuda(*args, counter))
+            row[f"eager_ms_{tag}"] = cuda_ms(
+                lambda: st.stationary_nll_forward_cuda(*args, counter))
+            row[f"plain_ms_{tag}"] = graph_ms(lambda: st.stationary_nll_forward_plain(*args),
+                                              reps=5)
+            row[f"library_ms_{tag}"] = graph_ms(
+                lambda: chain(with_w, lambda K: torch.linalg.cholesky_ex(K)[0]))
+            row[f"library_eager_ms_{tag}"] = cuda_ms(lambda: chain(with_w, torch.linalg.cholesky))
+            row[f"bound_{tag}"] = nll_bound_ms(B, N, len(families), len(d2s), masked, with_w)
+    return row
+
+
+def report_stationary_times(phase, label, row):
+    from portfoliooptgp_tpu_torch.ops import stationary_nll as st
+
+    families, dims, B, N, masked = STATIONARY_TIMED[label]
+    print(f"  {phase} stationary {label} B={B} N={N} {'*'.join(families)}"
+          f"{' masked' if masked else ''} ({stationary_route(N)} kernel, graph replay): kernel "
+          f"with W {row['ms_inv']:.4f} ms, value only {row['ms_value']:.4f} ms; plain "
+          f"{row['plain_ms_inv']:.4f} / {row['plain_ms_value']:.4f} ms; torch.linalg chain "
+          f"{row['library_ms_inv']:.4f} / {row['library_ms_value']:.4f} ms; bound "
+          f"{row['bound_inv'][0]:.6f} ({row['bound_inv'][1]}) / {row['bound_value'][0]:.6f} ms "
+          f"({row['bound_value'][1]}); eager (CUDA events around back-to-back calls): kernel "
+          f"{row['eager_ms_inv']:.4f} / {row['eager_ms_value']:.4f} ms, chain "
+          f"{row['library_eager_ms_inv']:.4f} / {row['library_eager_ms_value']:.4f} ms; "
+          f"occupancy {st.ctas_per_sm(N, True)} / {st.ctas_per_sm(N, False)} CTAs per SM",
+          flush=True)
+
+
+def stationary_entry(row, tag):
+    """One variant of a stationary_times row for the kernels JSON line."""
+    return dict(ms=row[f"ms_{tag}"], eager_ms=row[f"eager_ms_{tag}"],
+                plain_ms=row[f"plain_ms_{tag}"], library_ms=row[f"library_ms_{tag}"],
+                bound_ms=row[f"bound_{tag}"][0], bound_by=row[f"bound_{tag}"][1])
 
 
 def device_busy(fn, report_name, kernel="stationary_nll"):
@@ -1421,25 +1602,40 @@ def phase_headline():
 
     for k in st.LAUNCHES:
         st.LAUNCHES[k] = 0
+    before = st.kernel_launches()
     nll, grads = value_and_grad()
     torch.cuda.synchronize()
     launches = st.LAUNCHES["stationary_nll"]
-    if launches < 1:
-        raise AssertionError("the headline value+grad launched no stationary_nll kernel")
+    ran = launches_since(before)
+    if launches < 1 or ran["tile"] < 1 or ran["column"]:
+        raise AssertionError(f"the headline value+grad launched {launches} stationary_nll "
+                             f"kernels ({ran}), not the tile kernel")
     if not (torch.all(torch.isfinite(nll)) and all(torch.all(torch.isfinite(g)) for g in grads)):
         raise AssertionError("non-finite headline value or gradient")
     vg_ms = cuda_ms(value_and_grad, reps=10)
-    k, p, lib = time_forward(("se",), (1,), 128, 256, False, 31, "stationary_nll")
-    kv, pv, _ = time_forward(("se",), (1,), 128, 256, False, 31, "stationary_nll",
-                             with_inverse=False)
-    bound, bound_by = nll_bound_ms(128, 256, 1, 1, False, True)
-    print(f"phase 3 headline B=128 N=256 se f32: tier {tier}, launches {launches}, "
-          f"value+grad {vg_ms:.4f} ms ({1e3 / vg_ms * 128:.1f} evals/s)", flush=True)
-    print(f"  kernel with W {k:.4f} ms, plain with W {p:.4f} ms, torch.linalg yardstick "
-          f"{lib:.4f} ms; kernel value only {kv:.4f} ms, plain value only {pv:.4f} ms; "
-          f"bound {bound:.4f} ms ({bound_by})", flush=True)
-    return dict(launches=launches, ms=k, plain_ms=p, library_ms=lib, bound_ms=bound,
-                bound_by=bound_by, value_grad_ms=vg_ms)
+    vg_device = value_grad_device_ms(value_and_grad)
+    print(f"phase 3 headline B=128 N=256 se f32: tier {tier}, launches {launches} (tile kernel "
+          f"{ran['tile']}, column loop {ran['column']}), value+grad {vg_ms:.4f} ms "
+          f"({1e3 / vg_ms * 128:.1f} evals/s); profiled, a value+grad keeps the device busy "
+          f"{vg_device['device_ms']:.4f} ms, the stationary kernel {vg_device['kernel_ms']:.4f} "
+          f"ms of it", flush=True)
+    rows = {}
+    for label in ("headline", "weekly menu", "monthly menu", "frontier grid A"):
+        families, dims, B, N, masked = STATIONARY_TIMED[label]
+        rows[label] = stationary_times(st, families, dims, B, N, masked)
+        report_stationary_times("phase 3", label, rows[label])
+    return dict(launches=launches, rows=rows, value_grad_ms=vg_ms,
+                value_grad_device_ms=vg_device["device_ms"])
+
+
+def value_grad_device_ms(value_and_grad, calls=10):
+    """Device time of one value+grad call, and the stationary kernel's part
+    of it, in ms: the device events of `calls` calls under torch.profiler
+    (`device_busy`; by name in chiprun_out/headline_profile.txt) over
+    `calls`. The eager call is host-bound, so its time does not show what
+    the device spends."""
+    busy = device_busy(lambda: [value_and_grad() for _ in range(calls)], "headline_profile.txt")
+    return dict(device_ms=1e3 * busy["device_s"] / calls, kernel_ms=1e3 * busy["kernel_s"] / calls)
 
 
 def phase_end_to_end():
@@ -1452,13 +1648,16 @@ def phase_end_to_end():
         make_market(root)
         for k in st.LAUNCHES:
             st.LAUNCHES[k] = 0
+        before = st.kernel_launches()
         cold, quality = run_workflow(root, DEVICE)
         launches = st.LAUNCHES["stationary_nll_general"]
+        ran = launches_since(before)
         stages = {}
         warm, quality_warm = run_workflow(root, DEVICE, timings=stages)
         busy = device_busy(lambda: run_workflow(root, DEVICE), "e2e_profile.txt")
-    if launches < 1:
-        raise AssertionError("the end-to-end run launched no stationary_nll_general kernel")
+    if launches < 1 or ran["tile"] < 1 or ran["column"]:
+        raise AssertionError(f"the end-to-end run launched {launches} stationary_nll_general "
+                             f"kernels ({ran}), not the tile kernel")
     results = []
     for label, q in (("cold", quality), ("warm", quality_warm)):
         ok, worst = compare_to_goldens(q, goldens)
@@ -1467,8 +1666,8 @@ def phase_end_to_end():
             raise AssertionError(f"{label} run does not match the goldens: {worst}")
     print(f"phase 4 end to end f32: cold {cold:.2f} s, warm {warm:.2f} s (step 4 "
           f"{stages['step4_s']:.2f} s, portfolio {stages['portfolio_s']:.2f} s), kernel "
-          f"launches {launches}; goldens MATCH (worst {results[0]['metric']}: "
-          f"{results[0]['diff']:.4g})", flush=True)
+          f"launches {launches} (tile kernel {ran['tile']}, column loop {ran['column']}); "
+          f"goldens MATCH (worst {results[0]['metric']}: {results[0]['diff']:.4g})", flush=True)
     if busy["device_s"] > 0:
         print(f"  profiled warm pass: {busy['wall_s']:.2f} s wall, device busy "
               f"{busy['device_s']:.3f} s ({100 * busy['device_s'] / warm:.1f}% of the "
@@ -1478,13 +1677,10 @@ def phase_end_to_end():
         print("  profiled warm pass: the profiler recorded no device events; device busy "
               "share not measured", flush=True)
     print(json.dumps(quality, sort_keys=True), flush=True)
-    k, p, lib = time_forward(("matern12", "matern12"), (1, 1), 5, 77, True, 24,
-                             "stationary_nll_general")
-    bound, bound_by = nll_bound_ms(5, 77, 2, 2, True, True)
-    print(f"  walk-forward shape B=5 N=77 J=2: kernel with W {k:.4f} ms, plain {p:.4f} ms, "
-          f"torch.linalg yardstick {lib:.4f} ms, bound {bound:.6f} ms ({bound_by})", flush=True)
-    return dict(launches=launches, ms=k, plain_ms=p, library_ms=lib, bound_ms=bound,
-                bound_by=bound_by)
+    families, dims, B, N, masked = STATIONARY_TIMED["walk-forward"]
+    row = stationary_times(st, families, dims, B, N, masked)
+    report_stationary_times("phase 4", "walk-forward", row)
+    return dict(launches=launches, row=row)
 
 
 def panel_bound_ms(nt, B=1):
@@ -1808,9 +2004,11 @@ def phase_single_asset():
         for counts in (bn.LAUNCHES, st.LAUNCHES):
             for k in counts:
                 counts[k] = 0
+        before = st.kernel_launches()
         cold, q = run_single_asset(root, DEVICE)
         launches = bn.LAUNCHES["blocked_panel"]
         fused = st.LAUNCHES["stationary_nll"] + st.LAUNCHES["stationary_nll_general"]
+        ran = launches_since(before)
         _single_asset_report("cold", cold, q)
         warm, q_warm = run_single_asset(root, DEVICE)
         _single_asset_report("warm", warm, q_warm)
@@ -1837,7 +2035,8 @@ def phase_single_asset():
     rms = float(np.sqrt(np.mean((np.asarray(q["f_mean"][:n]) - goldens["f_mean"][:n]) ** 2)))
     print(f"  goldens MATCH: alpha {q['alpha']:.6f} ({goldens['alpha']:.6f}), beta "
           f"{q['beta']:.3g} ({goldens['beta']:.3g}), in-sample f_mean RMS {rms:.4g}; "
-          f"blocked_panel launches {launches}, stationary NLL launches {fused}", flush=True)
+          f"blocked_panel launches {launches}, stationary NLL launches {fused} (tile kernel "
+          f"{ran['tile']}, column loop {ran['column']})", flush=True)
     if busy["device_s"] > 0:
         print(f"  profiled warm pass: {busy['wall_s']:.2f} s wall, device busy "
               f"{busy['device_s']:.3f} s ({100 * busy['device_s'] / warm:.1f}% of the "
@@ -2115,6 +2314,8 @@ def phase_frontier():
     counts of the pipeline run read after it (the one-year grid on the
     stationary kernel and no triangular inverse, the five-year grid's fit
     on the triangular inverse)."""
+    from portfoliooptgp_tpu_torch.ops import stationary_nll as st
+
     results = {}
     for grid in ("1y", "5y"):
         with open(frontier_goldens_path(grid)) as fh:
@@ -2123,7 +2324,9 @@ def phase_frontier():
             g32 = json.load(fh)
         with tempfile.TemporaryDirectory() as root:
             make_frontier_market(root, *FRONTIER_GRIDS[grid], seed=g["market_seed"])
+            before = st.kernel_launches()
             runs = [("cold", *run_frontier(root, grid, g, g32, DEVICE))]
+            ran = launches_since(before)
             if grid == "5y":
                 # the replays do not depend on the fit: the warm run reuses the cold run's
                 runs.append(("warm", *run_frontier(root, grid, g, g32, DEVICE, replay=False)))
@@ -2146,8 +2349,10 @@ def phase_frontier():
                 replay_nll={t: q["replay"][t]["nll"] for t in ("f64", "f32")})), flush=True)
         counts = runs[0][2]["launches"]
         stationary = counts["stationary_nll"] + counts["stationary_nll_general"]
-        if grid == "1y" and (stationary < 1 or counts["triangular_inverse"]):
-            raise AssertionError(f"the one-year frontier run launched {counts}")
+        if grid == "1y" and (stationary < 1 or counts["triangular_inverse"] or ran["column"] < 1):
+            raise AssertionError(f"the one-year frontier run launched {counts} ({ran})")
+        print(f"  {grid} cold run: stationary tile kernel {ran['tile']}, column loop "
+              f"{ran['column']} launches", flush=True)
         if grid == "5y" and counts["triangular_inverse"] < 1:
             raise AssertionError(f"the five-year frontier run launched {counts}")
         print(f"  goldens MATCH on {grid} (JAX float64 NLL {g['final_nll']:.7g}, float32 "
@@ -2366,6 +2571,7 @@ def phase_multi_input():
     step-4 runs. Then step 1 with the trained Polynomial pair once more
     under the profiler, for the device's busy share."""
     from benchmarks.bench_portfolio_e2e import make_market
+    from portfoliooptgp_tpu_torch.ops import stationary_nll as st
 
     with open(multi_input_goldens_path()) as fh:
         goldens = json.load(fh)
@@ -2376,7 +2582,11 @@ def phase_multi_input():
     with tempfile.TemporaryDirectory() as root:
         make_market(root)
         for label in ("cold", "warm"):
+            before = st.kernel_launches()
             elapsed, q = run_multi_input(root, MULTI_INPUT_CHIP_CASES, goldens, goldens32, DEVICE)
+            ran = launches_since(before)
+            print(f"  multi-input {label} steps: stationary tile kernel {ran['tile']}, column "
+                  f"loop {ran['column']} launches", flush=True)
             step4 = []
             _reset_launch_counts()
             wf_s, quality = run_workflow(root, DEVICE, kernel_pairs=pairs["poly"],
@@ -2696,6 +2906,8 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     errs = phase_checks()
+    errs["stationary_nll_general"] = max(errs["stationary_nll_general"],
+                                         phase_stationary_edges())
     head = phase_headline()
     e2e = phase_end_to_end()
     errs["blocked_panel"] = phase_blocked_checks()
@@ -2715,13 +2927,20 @@ def main() -> int:
         dict(name="stationary_nll_general", route="cuda", source=src,
              replaces="portfoliooptgp_tpu/ops/pallas/stationary_nll.py:343",
              launches=e2e["launches"], max_abs_err=errs["stationary_nll_general"],
-             ms=e2e["ms"], plain_ms=e2e["plain_ms"], bound_ms=e2e["bound_ms"],
-             bound_by=e2e["bound_by"], library_ms=e2e["library_ms"]),
+             **stationary_entry(e2e["row"], "inv"),
+             value_only=stationary_entry(e2e["row"], "value"),
+             at_128x256=stationary_entry(head["rows"]["headline"], "inv")),
         dict(name="stationary_nll", route="cuda", source=src,
              replaces="portfoliooptgp_tpu/ops/pallas/stationary_nll.py:197",
              launches=head["launches"], max_abs_err=errs["stationary_nll"],
-             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-             bound_by=head["bound_by"], library_ms=head["library_ms"]),
+             **stationary_entry(head["rows"]["headline"], "inv"),
+             value_only=stationary_entry(head["rows"]["headline"], "value"),
+             at_5x77=stationary_entry(e2e["row"], "inv"),
+             headline_value_grad_ms=head["value_grad_ms"],
+             headline_value_grad_device_ms=head["value_grad_device_ms"],
+             **{f"at_{B}x{N}": stationary_entry(head["rows"][label], "inv")
+                for label, (_, _, B, N, _) in STATIONARY_TIMED.items()
+                if label in ("weekly menu", "monthly menu", "frontier grid A")}),
         dict(name="blocked_panel", route="cuda",
              source="portfoliooptgp_tpu_torch/csrc/blocked_panel.cu",
              replaces="portfoliooptgp_tpu/ops/pallas/blocked_nll.py:70",

@@ -22,6 +22,9 @@ one does (one gradient per iteration).
 `LAUNCHES` counts kernel launches per wrapper: "stationary_nll_general"
 for the masked sum/product path (`_stg_kernel`'s role) and
 "stationary_nll" for the single-family path (`_st_kernel`/`_st_inv_kernel`).
+The source holds two kernels, chosen by N: the tile kernel for N ≤ 256
+(`MAX_TILE_N`) and the column loop above it; `kernel_launches()` reads how
+often each was launched, as the C entry point counts them.
 """
 
 from __future__ import annotations
@@ -39,8 +42,12 @@ SQRT5 = 2.23606797749979
 
 # Build-in-shared-memory routing window, kept equal to the JAX package's
 # fused window (stationary_nll.MAX_FUSED_N) so the router names the same
-# tiers. The kernel itself takes any N (see the source note).
+# tiers. The column loop takes any N (see the source note).
 MAX_FUSED_N = 512
+
+# The tile kernel's largest N (csrc/stationary_nll.cu: MAX_TILE_N); the
+# column loop takes larger N.
+MAX_TILE_N = 256
 
 FAMILIES = ("se", "matern12", "matern32", "matern52")
 GENERAL_FAMILIES = FAMILIES + ("rq", "periodic_se", "linear")
@@ -177,8 +184,26 @@ def _lib():
             + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
         lib.stationary_nll_needs_workspace.restype = ctypes.c_int
         lib.stationary_nll_needs_workspace.argtypes = [ctypes.c_int]
+        lib.stationary_nll_kernel_launches.restype = None
+        lib.stationary_nll_kernel_launches.argtypes = [ctypes.c_void_p]
+        lib.stationary_nll_ctas_per_sm.restype = ctypes.c_int
+        lib.stationary_nll_ctas_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
         _LIB = lib
     return _LIB
+
+
+def kernel_launches() -> dict:
+    """{"tile": n, "column": n}: launches of the tile kernel (N ≤ 256) and
+    of the column loop since the library was loaded, counted by the C entry
+    point where it launches each. Loads (and builds) the library."""
+    out = (ctypes.c_longlong * 2)()
+    _lib().stationary_nll_kernel_launches(out)
+    return {"tile": out[0], "column": out[1]}
+
+
+def ctas_per_sm(n: int, with_inverse: bool) -> int:
+    """CTAs of the kernel that runs at N resident on one SM (occupancy)."""
+    return _lib().stationary_nll_ctas_per_sm(n, 1 if with_inverse else 0)
 
 
 def stationary_nll_forward_cuda(families, combine, dims, d2s, err, vs, ss, als,

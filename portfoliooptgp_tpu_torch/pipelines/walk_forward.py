@@ -32,6 +32,12 @@ from portfoliooptgp_tpu_torch.train import batched_lbfgs, lbfgs
 LOG_2PI = math.log(2.0 * math.pi)
 
 
+def mean_rows(model: GPR, X, B: int):
+    """μ(X) as (B, N) for B models: `Zero` returns (N, 1), shared by the
+    batch; the other means return (B, N, 1), a row per model."""
+    return model.mean_function(X)[..., 0].expand(B, X.shape[0])
+
+
 def masked_system(model: GPR, X, Y, mask):
     """(Ks (B,N,N), err (B,N,1)) for B models and their masks (B, N):
     rows/cols outside the prefix become identity with zero targets."""
@@ -66,7 +72,7 @@ def masked_predict_next(model: GPR, X, Y, mask, next_index):
     A = linalg.solve_lower(L, kstar)
     alpha = linalg.chol_solve(L, err)
     mean = (torch.sum(kstar[:, :, 0] * alpha[:, :, 0], dim=-1)
-            + model.mean_function(X)[next_index, 0])
+            + mean_rows(model, X, B)[rows, next_index])
     var = K[rows, next_index, next_index] - torch.sum(A * A, dim=(-2, -1))
     return mean, torch.clamp_min(var, 0.0)
 
@@ -151,7 +157,7 @@ def batched_walk_forward(
         # per-atom distance matrices and each day's prefix mask
         def batched_loss(ms):
             spec = gpr_mod.fused_stationary_spec(ms, X_full)
-            err = (Y_full[None, :, 0] - ms.mean_function(X_full)[None, :, 0]) * masks_dr
+            err = (Y_full[None, :, 0] - mean_rows(ms, X_full, D * R)) * masks_dr
             fused = (st_mod.batched_nll_stationary_sum if spec.combine == "sum"
                      else st_mod.batched_nll_stationary_general)
             nll = fused(spec.families, spec.d2s, err, spec.vs, spec.ls, spec.als,

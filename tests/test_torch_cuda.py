@@ -86,6 +86,82 @@ def test_torch_cuda_kernel_indefinite_gives_nan(cuda):
     assert torch.all(torch.isnan(nll))
 
 
+@pytest.mark.parametrize("kind", ["unmasked", "masked", "indefinite"])
+@pytest.mark.parametrize("N", [1, 31, 32, 33, 64, 65, 255, 256, 300, 400])
+def test_torch_cuda_stationary_kernel_tile_edges(cuda, N, kind):
+    """The stationary kernel, with and without W, at the tile kernel's edges
+    and past them (N = 300: the column loop; N = 400: its workspace)
+    against the plain version at phase 2b's tolerances
+    (chip_smoke.check_stationary): unmasked; masked, the last model keeping
+    N // 8 rows (every tile past its first empty from N = 64); and with an
+    indefinite last model, NaN where the plain version has it. Each launch
+    runs the kernel its N routes to (the tile kernel up to 256)."""
+    import chip_smoke as cs
+
+    cases = {"unmasked": (("se", "matern32"), "prod", (N, N, N)),
+             "masked": (("matern12", "matern12"), "prod", (N, (2 * N) // 3, N // 8)),
+             "indefinite": (("se", "linear"), "sum", (N, N, N))}
+    families, combine, keeps = cases[kind]
+    err = cs.check_stationary(f"stationary {kind} N={N}", families, (1, 1), combine, N, keeps,
+                              600 + N, indefinite=kind == "indefinite")
+    assert np.isfinite(err)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("N", [1, 31, 32, 33, 64, 65, 255, 256])
+def test_torch_cuda_stationary_tile_kernel_gradients(cuda, N, masked):
+    """Values and gradients of every operand through the tile kernel against
+    the plain version at the tile edges (chip_smoke.check_general: values
+    rtol 3e-3, gradients normalized atol 2e-2)."""
+    import chip_smoke as cs
+
+    cs.check_general(f"tile N={N}", ("matern12", "matern12"), (1, 1), "prod", 3, N, masked,
+                     700 + N)
+
+
+@pytest.mark.parametrize("combine", ["prod", "sum"])
+@pytest.mark.parametrize("family", st.GENERAL_FAMILIES)
+def test_torch_cuda_stationary_tile_kernel_families(cuda, family, combine):
+    """Each of the 7 families beside an SE atom, summed and multiplied,
+    masked, at N = 100 on the tile kernel: values and gradients against the
+    plain version (chip_smoke.check_general)."""
+    import chip_smoke as cs
+
+    before = st.kernel_launches()
+    cs.check_general(f"tile {family} {combine} se", (family, "se"), (1, 1), combine, 6, 100,
+                     True, 800 + st.GENERAL_FAMILIES.index(family))
+    after = st.kernel_launches()
+    assert after["tile"] > before["tile"] and after["column"] == before["column"]
+
+
+@pytest.mark.parametrize("dims,N", [((4, 1), 96), ((3, 2), 256)])
+def test_torch_cuda_stationary_tile_kernel_ard(cuda, dims, N):
+    """ARD atoms (several shared d2 matrices per atom) on the tile kernel:
+    values and gradients against the plain version."""
+    import chip_smoke as cs
+
+    cs.check_general(f"tile ARD {dims} N={N}", ("se", "matern52"), dims, "prod", 4, N, True,
+                     900 + N)
+
+
+@pytest.mark.parametrize("N,route", [(40, "tile"), (175, "tile"), (256, "tile"),
+                                     (257, "column"), (262, "column")])
+def test_torch_cuda_stationary_kernel_routes_by_n(cuda, N, route):
+    """batched_nll_stationary's value and value+grad launch the tile kernel at
+    N <= 256 (the weekly and monthly menus, the headline) and the column loop
+    above (frontier grid A's 262), once each, as the C entry point counts."""
+    d2s, err, vs, ls, _, noise, _ = _operands(cuda, ("se",), (1,), 2, N, 3)
+    before = st.kernel_launches()
+    with torch.no_grad():
+        st.batched_nll_stationary(d2s[0], err, vs[0], ls[0], noise, "se")
+    nll = st.batched_nll_stationary(d2s[0], err, vs[0], ls[0], noise, "se")
+    torch.autograd.grad(nll.sum(), [vs[0]])
+    torch.cuda.synchronize()
+    after = st.kernel_launches()
+    other = "column" if route == "tile" else "tile"
+    assert after[route] == before[route] + 2 and after[other] == before[other]
+
+
 # -- the blocked tier's panel kernel (csrc/blocked_panel.cu) ----------------
 
 def _spd(cuda, B, N, seed):

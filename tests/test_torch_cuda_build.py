@@ -21,9 +21,10 @@ def test_torch_cuda_build_sources_list_their_headers():
     assert cuda_build._source_files("blocked_panel") == ["blocked_panel.cu", "chol_tile.cuh",
                                                          "hopper_async.cuh"]
     assert cuda_build._source_files("dense_nll") == ["dense_nll.cu", "chol_tile.cuh",
-                                                     "hopper_async.cuh"]
+                                                     "hopper_async.cuh", "nll_tile.cuh"]
     assert cuda_build._source_files("trinv") == ["trinv.cu", "hopper_async.cuh"]
-    assert cuda_build._source_files("stationary_nll") == ["stationary_nll.cu"]
+    assert cuda_build._source_files("stationary_nll") == ["stationary_nll.cu", "chol_tile.cuh",
+                                                          "nll_tile.cuh"]
     for name in cuda_build.SOURCES:
         for f in cuda_build._source_files(name):
             assert os.path.exists(os.path.join(cuda_build.CSRC, f))
@@ -49,11 +50,24 @@ def test_torch_cuda_build_header_edit_changes_library_path(tmp_path, monkeypatch
 
 def test_torch_cuda_build_tile_header_edit_moves_its_two_sources(tmp_path, monkeypatch):
     """The warp-factor header chol_tile.cuh is shared by the panel factor and
-    the dense NLL: editing it moves their library paths and no other."""
+    the two NLL kernels on the tile core (dense and stationary, through
+    nll_tile.cuh): editing it moves their library paths and no other."""
     dst = _copy_csrc(tmp_path, monkeypatch)
     before = {name: cuda_build.library_path(name) for name in cuda_build.SOURCES}
     with open(dst / "chol_tile.cuh", "ab") as fh:
         fh.write(b"// edited\n")
     after = {name: cuda_build.library_path(name) for name in cuda_build.SOURCES}
     assert {name for name in cuda_build.SOURCES
-            if before[name] != after[name]} == {"blocked_panel", "dense_nll"}
+            if before[name] != after[name]} == {"blocked_panel", "dense_nll", "stationary_nll"}
+
+
+def test_torch_cuda_build_nll_tile_header_edit_moves_the_nll_sources(tmp_path, monkeypatch):
+    """The tile core nll_tile.cuh is shared by the dense and the stationary
+    NLL kernels: editing it moves their library paths and no other."""
+    dst = _copy_csrc(tmp_path, monkeypatch)
+    before = {name: cuda_build.library_path(name) for name in cuda_build.SOURCES}
+    with open(dst / "nll_tile.cuh", "ab") as fh:
+        fh.write(b"// edited\n")
+    after = {name: cuda_build.library_path(name) for name in cuda_build.SOURCES}
+    assert {name for name in cuda_build.SOURCES
+            if before[name] != after[name]} == {"dense_nll", "stationary_nll"}

@@ -131,6 +131,121 @@ def test_torch_walk_forward_float32_takes_fused_branch(monkeypatch):
                                res[torch.float64].f_mean.numpy(), rtol=2e-2, atol=2e-3)
 
 
+# A mean function other than Zero returns (B, N, 1), a row per model; Zero
+# returns (N, 1). Each case: the port's mean and the JAX package's, built
+# from the same numbers.
+MEANS = {
+    "constant": (lambda o: tk.ConstantMean.create(1.5, **o),
+                 lambda: jk.ConstantMean.create(1.5)),
+    "linear": (lambda o: tk.LinearMean.create(A=[0.3, -0.2], b=0.5, **o),
+               lambda: jk.LinearMean.create(A=np.array([[0.3], [-0.2]]), b=0.5)),
+    "polynomial": (lambda o: tk.PolynomialMean.create(2, w=[0.5, 0.2, -0.05], **o),
+                   lambda: jk.PolynomialMean.create(2, w=np.array([0.5, 0.2, -0.05]))),
+}
+
+
+def _mean_models(mean, o, jdtype=jnp.float64):
+    """make_model for each package: composite_kernel(2, Matern32,
+    SquaredExponential) with the given mean, at the given precision."""
+    tmean, jmean = MEANS[mean]
+    return (lambda v: tgpr.GPR.create(
+                tk.composite_kernel(2, tk.Matern32, tk.SquaredExponential, **o), v,
+                mean_function=tmean(o)),
+            lambda v: jax.tree.map(lambda x: x.astype(jdtype), jgpr.GPR.create(
+                jk.composite_kernel(2, jk.Matern32, jk.SquaredExponential), v,
+                mean_function=jmean())))
+
+
+@pytest.mark.parametrize("mean", list(MEANS))
+def test_torch_masked_predict_next_with_mean_matches_jax(mean):
+    """Three stacked models with a non-Zero mean, float64: the masked
+    system, NLL and next-row prediction against JAX's under vmap, at the
+    tolerances of the Zero-mean test above."""
+    X, Y = _series()
+    tmake, jmake = _mean_models(mean, CPU64)
+    jms = [jax.tree.map(lambda x, i=i: x + 0.1 * i, jmake(v))
+           for i, v in enumerate((0.05, 0.1, 0.2))]
+    jstack = jax.tree.map(lambda *xs: jnp.stack(xs), *jms)
+    tm = tparams.from_jax_leaves(tmake(1.0), [np.asarray(x) for x in jax.tree.leaves(jstack)])
+    masks = (np.arange(40)[None, :] < np.array([25, 33, 39])[:, None]).astype(float)
+    nxt = np.array([25, 33, 39])
+    jX, jY, jmasks = jnp.asarray(X), jnp.asarray(Y), jnp.asarray(masks)
+    tX, tY, tmask = torch.as_tensor(X), torch.as_tensor(Y), torch.as_tensor(masks)
+
+    _, err = twf.masked_system(tm, tX, tY, tmask)
+    _, jerr = jax.vmap(lambda m, k: jwf.masked_system(m, jX, jY, k))(jstack, jmasks)
+    np.testing.assert_allclose(err.numpy(), np.asarray(jerr), rtol=1e-12, atol=1e-15)
+    nll = twf.masked_nll(tm, tX, tY, tmask)
+    jnll = jax.vmap(lambda m, k: jwf.masked_nll(m, jX, jY, k))(jstack, jmasks)
+    np.testing.assert_allclose(nll.numpy(), np.asarray(jnll), rtol=1e-10)
+    mean_, var = twf.masked_predict_next(tm, tX, tY, tmask, torch.as_tensor(nxt))
+    jmean, jvar = jax.vmap(lambda m, k, i: jwf.masked_predict_next(m, jX, jY, k, i))(
+        jstack, jmasks, jnp.asarray(nxt))
+    np.testing.assert_allclose(mean_.numpy(), np.asarray(jmean), rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(var.numpy(), np.asarray(jvar), rtol=1e-8, atol=1e-12)
+
+
+@pytest.mark.parametrize("mean", list(MEANS))
+def test_torch_batched_walk_forward_with_mean_matches_jax(mean):
+    """The walk-forward with a non-Zero mean, float64: 40 rows, 30 training
+    rows, 3 days, 5 L-BFGS iterations; the mean's leaves train with the
+    rest. Losses rtol 1e-8, next-day moments rtol 1e-4, as in the cold
+    test above."""
+    X, Y = _series()
+    tmake, jmake = _mean_models(mean, CPU64)
+    kw = dict(n_days=3, maxiter=5)
+    jres = _jitted_walk_forward(jnp.asarray(X), jnp.asarray(Y), 30, jmake, **kw)
+    tres = twf.batched_walk_forward(X, Y, 30, tmake, **CPU64, **kw)
+    np.testing.assert_allclose(tres.losses.numpy(), np.asarray(jres.losses), rtol=1e-8)
+    np.testing.assert_allclose(tres.f_mean.numpy(), np.asarray(jres.f_mean), rtol=1e-4, atol=1e-8)
+    np.testing.assert_allclose(tres.f_var.numpy(), np.asarray(jres.f_var), rtol=1e-4, atol=1e-12)
+
+
+# The float32 walk-forward with a non-Zero mean against JAX's float32 run.
+# Five float32 L-BFGS iterations stop where rounding takes them: JAX's own
+# float32 run lies up to 1.7e-2 (of the largest value) from its float64
+# run in the next-day means of the polynomial case, 3e-3 in the constant
+# case. The port's float32 run is another sample of that rounding, so each
+# of its outputs is held to JAX's float32 one within F32_SPREAD times JAX's
+# own float32-to-float64 distance of that output, the rule of
+# chip_smoke.MI_SPREAD, and never closer than F32_FLOOR (about a hundred
+# float32 roundings of values of order one).
+F32_SPREAD = 4.0
+F32_FLOOR = 1e-5
+
+
+@pytest.mark.parametrize("mean", list(MEANS))
+def test_torch_walk_forward_float32_fused_with_mean_matches_jax(mean, monkeypatch):
+    """Float32 with a non-Zero mean takes the fused branch (its plain
+    version on the CPU; JAX's Pallas kernel in interpret mode) and lands on
+    JAX's float32 result within F32_SPREAD times JAX's own float32 spread."""
+    X, Y = _series()
+    calls = []
+    real = tst.stationary_nll_forward
+
+    def spy(*args):
+        calls.append(args[0])
+        return real(*args)
+
+    monkeypatch.setattr(tst, "stationary_nll_forward", spy)
+    kw = dict(n_days=3, maxiter=5)
+    o32 = dict(device="cpu", dtype=torch.float32)
+    tmake, jmake32 = _mean_models(mean, o32, jnp.float32)
+    tres = twf.batched_walk_forward(X, Y, 30, tmake, **o32, **kw)
+    assert calls and all(c == ("matern32", "se") for c in calls)
+    j32 = _jitted_walk_forward(jnp.asarray(X, jnp.float32), jnp.asarray(Y, jnp.float32), 30,
+                               jmake32, **kw)
+    j64 = _jitted_walk_forward(jnp.asarray(X), jnp.asarray(Y), 30,
+                               _mean_models(mean, CPU64)[1], **kw)
+    for name in ("losses", "f_mean", "f_var"):
+        got = getattr(tres, name).double().numpy()
+        want, ref64 = (np.asarray(getattr(r, name), dtype=np.float64) for r in (j32, j64))
+        scale = np.max(np.abs(ref64))
+        spread = np.max(np.abs(want - ref64)) / scale
+        err = np.max(np.abs(got - want)) / scale
+        assert err <= max(F32_SPREAD * spread, F32_FLOOR), (name, err, spread)
+
+
 @pytest.fixture(scope="module")
 def market():
     with tempfile.TemporaryDirectory() as root:

@@ -45,15 +45,20 @@ def times_of(root: str) -> dict:
     return {f"{B}x{N}": cs.dense_times(nll, B, N) for B, N in cs.DENSE_TIMED}
 
 
-def main(argv) -> int:
+def run_in_turns(script: str, times_of, argv) -> int:
+    """The command line of this tool and of tools/stationary_compare.py:
+    `--one ROOT` times one checkout in this process (times_of(ROOT)); a
+    list of roots runs `script --one ROOT` for each in a process of its own,
+    in the order given, and prints one JSON line per root and then the
+    card's name and power limit."""
     if len(argv) == 2 and argv[0] == "--one":
         print(json.dumps(times_of(argv[1])), flush=True)
         return 0
     if not argv:
-        print(__doc__, file=sys.stderr)
+        print(sys.modules["__main__"].__doc__, file=sys.stderr)
         return 2
     for root in argv:
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root],
+        out = subprocess.run([sys.executable, os.path.abspath(script), "--one", root],
                              capture_output=True, text=True, cwd=HERE)
         if out.returncode != 0:
             print(out.stdout + out.stderr, file=sys.stderr)
@@ -66,4 +71,4 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(run_in_turns(__file__, times_of, sys.argv[1:]))

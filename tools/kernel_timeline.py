@@ -1,10 +1,11 @@
 """Where the time goes inside the panel-factor, triangular-inverse and dense
 NLL kernels.
 
-Builds a copy of `csrc/blocked_panel.cu`, `csrc/trinv.cu` and
-`csrc/dense_nll.cu` with clock64()
-marks inserted at the boundaries of their phases (the copies go to
-build/timeline/; the sources are not touched), launches each at its main
+Builds a copy of `csrc/blocked_panel.cu`, `csrc/trinv.cu`,
+`csrc/dense_nll.cu` and `csrc/stationary_nll.cu`, and of the headers they
+include, with clock64() marks inserted at the boundaries of their phases
+(the copies go to build/timeline/<source>/; the sources are not touched),
+launches each at its main
 path's shape, and prints, for CTA 0, the SM cycles from the CTA's start to
 each mark, per warp:
 
@@ -19,7 +20,12 @@ each mark, per warp:
   then for each sub-panel k the warp's own work of `a<k>` (diagonal
   factor: warp 0), `b<k>` (row solves) and `c<k>` (updates), each taken
   before the barrier that ends its phase, then for each row block J of W
-  `W<J>` (the warp's columns computed), and `end`.
+  `W<J>` (the warp's columns computed), and `end`;
+- the stationary NLL's tile kernel at the walk-forward's (5, 77), masked,
+  Matern12 × Matern12, and the headline's (128, 256), SE, value only and
+  with W: `built` (the warp's entries of K written), then `a<k>`, `b<k>`,
+  `c<k>` and `W<J>` as in the dense kernel (the tile core, in
+  csrc/nll_tile.cuh, is the same), and `end`.
 
 Run on a machine with an NVIDIA GPU and nvcc, from the repository root:
 
@@ -43,6 +49,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from portfoliooptgp_tpu_torch.ops import cuda_build  # noqa: E402
+from portfoliooptgp_tpu_torch.ops import stationary_nll as st  # noqa: E402
 
 SLOTS = 64  # marks per warp
 MARKS = f'''
@@ -94,31 +101,53 @@ DENSE = [
      "    CLK(3 * k);\n", True),
     ("    if (k == 0) {  // the later tile columns", "    CLK(3 * k + 1);\n", False),
     ("    __syncthreads();\n  }\n\n  // W = L^{-1}", "    CLK(3 * k + 2);\n", False),
-    ("      __syncthreads();  // every read of L's row block J is done",
-     "      CLK(24 + J);\n", False),
+    ("    __syncthreads();  // every read of L's row block J is done",  # nll_tile.cuh
+     "    CLK(24 + J);\n", False),
     ("}\n\ntemplate <bool WITH_W>\nstatic cudaError_t configure()", "  CLK(60);\n", False),
 ]
+STATIONARY = [
+    ('#include "nll_tile.cuh"\n', MARKS, False),  # CLK is defined before the header
+    ("  float* prm = lt + MAX_TILE_N;", "\n  CLK(63);", True),
+    ("  build_tiles(tiles, d2s, mk, prm, noise[b], N, T, atoms.J, atoms.combine);\n",
+     "  CLK(62);\n", True),
+    ("    if (warp == 0) factor_step(tiles, Lt(k), dg, yd, lt, k, N, ld);  // (a)\n",
+     "    CLK(3 * k);\n", True),
+    ("    __syncthreads();\n\n    // (c): two units", "    CLK(3 * k + 1);\n", False),
+    ("    __syncthreads();\n  }\n\n  // W = L^{-1}", "    CLK(3 * k + 2);\n", False),
+    ("    __syncthreads();  // every read of L's row block J is done",  # nll_tile.cuh
+     "    CLK(24 + J);\n", False),
+    ("}\n\ntemplate <bool WITH_W>\nstatic cudaError_t configure_tiles()", "  CLK(60);\n",
+     False),
+]
+
 DENSE_LABELS = {62: "staged", 60: "end",
                 **{3 * k + i: f"{'abc'[i]}{k}" for k in range(8) for i in range(3)},
                 **{24 + J: f"W{J}" for J in range(8)}}
+STATIONARY_LABELS = {**DENSE_LABELS, 62: "built"}
 
 
 def instrumented(name, edits):
-    src_dir = os.path.join(REPO, "build", "timeline")
+    """Build source `name` with the marks: each edit goes into the source
+    or, where the source does not hold its anchor, into the first header
+    of its own that does."""
+    src_dir = os.path.join(REPO, "build", "timeline", name)
     os.makedirs(src_dir, exist_ok=True)
-    with open(os.path.join(cuda_build.CSRC, cuda_build.SOURCES[name])) as fh:
-        src = fh.read()
+    files = cuda_build._source_files(name)
+    texts = {}
+    for f in files:
+        with open(os.path.join(cuda_build.CSRC, f)) as fh:
+            texts[f] = fh.read()
     for anchor, text, after in edits:
-        if anchor not in src:
+        f = next((f for f in files if anchor in texts[f]), None)
+        if f is None:
             raise SystemExit(f"{name}: anchor not found: {anchor!r}")
-        src = src.replace(anchor, anchor + text if after else text + anchor, 1)
-    for header in cuda_build._source_files(name)[1:]:
-        shutil.copy(os.path.join(cuda_build.CSRC, header), src_dir)
-    path = os.path.join(src_dir, f"{name}.cu")
-    with open(path, "w") as fh:
-        fh.write(src)
+        texts[f] = texts[f].replace(anchor, anchor + text if after else text + anchor, 1)
+    for f, text in texts.items():
+        with open(os.path.join(src_dir, f), "w") as fh:
+            fh.write(text)
     out = os.path.join(src_dir, f"lib{name}_timeline.so")
-    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", out, path], check=True)
+    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", out,
+                    os.path.join(src_dir, files[0])], check=True)
     return ctypes.CDLL(out)
 
 
@@ -199,6 +228,40 @@ def main() -> int:
                     raise SystemExit(f"dense launch failed: CUDA error {rc}")
             show(dense, f"dense NLL ({B}, {N}) {'with W' if with_w else 'value only'}, CTA 0, "
                  "SM cycles from its start:", DENSE_LABELS, 8)
+
+    stationary = instrumented("stationary_nll", STATIONARY)
+    stationary.stationary_nll_launch.argtypes = (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+        + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    for families, B, N, masked in ((("matern12", "matern12"), 5, 77, True),
+                                   (("se",), 128, 256, False)):
+        J = len(families)
+        x = torch.sort(30 * torch.rand(N, device="cuda", generator=rng)).values
+        d2s = ((x[:, None] - x[None, :]) ** 2).expand(J, N, N).contiguous()
+        keep = N - torch.arange(B, device="cuda") * N // (4 * B)
+        mask = (torch.arange(N, device="cuda")[None, :] < keep[:, None]).float()
+        err = torch.randn(B, N, device="cuda", generator=rng) * mask
+        vs, ss, als = torch.ones(J, B, device="cuda"), torch.full((J, B), 0.04, device="cuda"), \
+            torch.ones(J, B, device="cuda")
+        noise = torch.full((B,), 0.1, device="cuda")
+        nll_out, a = torch.empty(B, device="cuda"), torch.empty(B, N, device="cuda")
+        W = torch.empty(B, N, N, device="cuda")
+        codes = (ctypes.c_int * J)(*[st.GENERAL_FAMILIES.index(f) for f in families])
+        dims = (ctypes.c_int * J)(*([1] * J))
+        for with_w in (False, True):
+            if stationary.clear_clk() != 0:
+                raise SystemExit("clearing the marks failed")
+            for _ in range(3):
+                rc = stationary.stationary_nll_launch(
+                    d2s.data_ptr(), err.data_ptr(), mask.data_ptr() if masked else None,
+                    vs.data_ptr(), ss.data_ptr(), als.data_ptr(), noise.data_ptr(),
+                    nll_out.data_ptr(), a.data_ptr(), W.data_ptr() if with_w else None, None,
+                    B, N, J, codes, dims, 1, stream())
+                if rc != 0:
+                    raise SystemExit(f"stationary launch failed: CUDA error {rc}")
+            show(stationary, f"stationary NLL tile kernel ({B}, {N}) {'*'.join(families)}"
+                 f"{' masked' if masked else ''} {'with W' if with_w else 'value only'}, CTA 0, "
+                 "SM cycles from its start:", STATIONARY_LABELS, 8)
     return 0
 
 
