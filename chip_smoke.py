@@ -13,17 +13,22 @@ Phases, each fatal on failure:
      the matching checks in tools/smoke_tpu.py — for the 7 families, prod
      and sum, an ARD atom, a partial mask, the walk-forward shape and the
      headline shape; then (2b) at the tile kernel's edges, N in {1, 31, 32,
-     33, 64, 65, 255, 256}, and past it (N = 300, the column loop; N = 400,
-     its workspace): with and without W, unmasked, masked (a mask that
-     empties whole tiles) and indefinite (NaN where the plain version has
-     it), each launch on the kernel its N routes to (`phase_stationary_edges`);
+     33, 64, 65, 255, 256}, and past it on the cluster kernel, at both
+     sides of every tile count and cluster size it changes at
+     (STATIONARY_CLUSTER_NS, 257 to 512): with and without W, unmasked,
+     masked (a mask that empties whole tiles and whole CTAs' rows) and
+     indefinite (NaN where the plain version has it), each launch on the
+     kernel its N routes to (`phase_stationary_edges`);
   3. headline: value+grad of `batched_neg_log_marginal_likelihood` at
      B=128 SE models, N=256, float32, through the `fused_stationary` tier on
      the tile kernel; the stationary kernel's times with and without W at
-     the headline, the weekly and monthly menus' (1, 175) and (1, 40) and
-     frontier grid A's (20, 262), beside its plain version, the
-     torch.linalg chain and its bound, by CUDA-graph replay and eager
-     (`stationary_times`);
+     the headline, the weekly and monthly menus' (1, 175) and (1, 40),
+     and on the cluster kernel frontier grid A's (20, 262), the NUTS
+     posterior's (8, 512) ARD and a two-year walk-forward's (5, 480)
+     masked, beside its plain version, the torch.linalg chain and its
+     bound, by CUDA-graph replay and eager (`stationary_times`), each
+     shape's outputs first held against the plain version on the inputs
+     it is timed on (`check_timed`);
   4. end to end: the 5-asset portfolio workflow (walk-forward GP fit,
      ARIMA, correlations, 5 strategies, backtest) on the card in float32,
      cold then warm, checked against tests/goldens/portfolio_e2e_goldens.json,
@@ -1006,30 +1011,34 @@ def check_single(name, family, B, N, seed):
     return _max_err(outs[0][0], outs[1][0])
 
 
-# The stationary kernels' tile edges (N = 32 T and one row either side) and
-# two N past the tile kernel's 256: one where the column loop's packed factor
-# fits shared memory, one where it takes the global-memory workspace.
+# The tile kernel's edges (N = 32 T and one row either side); past them the
+# cluster kernel's: the first N, grid A's 262, both sides of T = 9 .. 10 and
+# 10 .. 11, of the smallest cluster size's steps (C = 2 up to 352, 4 up to
+# 448, 8 up to 512) and of T = 13 .. 14, 300 and 400, and the window's top.
 STATIONARY_EDGES = (1, 31, 32, 33, 64, 65, 255, 256)
-STATIONARY_COLUMN_NS = (300, 400)
+STATIONARY_CLUSTER_NS = (257, 262, 288, 289, 300, 320, 321, 352, 353, 400, 416, 417, 448, 449,
+                         512)
 # The shapes timed (`stationary_times`): label → (families, dims, B, N, masked).
 STATIONARY_TIMED = {
     "walk-forward": (("matern12", "matern12"), (1, 1), 5, 77, True),
     "headline": (("se",), (1,), 128, 256, False),
     "weekly menu": (("se",), (1,), 1, 175, False),
     "monthly menu": (("se",), (1,), 1, 40, False),
-    "frontier grid A": (("se",), (1,), 20, 262, False),  # the column loop
+    "frontier grid A": (("se",), (1,), 20, 262, False),  # the cluster kernel from here on
+    "NUTS bench": (("se",), (4,), 8, 512, False),  # bench.py's posterior: 8 chains, ARD D = 4
+    "two-year walk-forward": (("matern12", "matern12"), (1, 1), 5, 480, True),
 }
 
 
 def stationary_route(N):
-    """The stationary source's kernel that runs at N: 'tile' or 'column'."""
+    """The stationary source's kernel that runs at N: 'tile' or 'cluster'."""
     from portfoliooptgp_tpu_torch.ops import stationary_nll as st
 
-    return "tile" if N <= st.MAX_TILE_N else "column"
+    return "tile" if N <= st.MAX_TILE_N else "cluster"
 
 
 def launches_since(before):
-    """Launches of the stationary source's tile kernel and column loop since
+    """Launches of the stationary source's tile and cluster kernels since
     `before` (an earlier `stationary_nll.kernel_launches()`)."""
     from portfoliooptgp_tpu_torch.ops import stationary_nll as st
 
@@ -1046,7 +1055,7 @@ def check_stationary(label, families, dims, combine, N, keeps, seed, indefinite=
     against its float64 run where that is larger. Models whose factor fails
     (the plain version's NLL is NaN): the kernel's NLL is NaN, and a and W
     are NaN exactly where the column loop (ops.nll's plain dense version, on
-    the same K) has NaN. With `indefinite` the last model is made so (its
+    the same K, at any N) has NaN. With `indefinite` the last model is made so (its
     linear atom's variance -3, and at N = 1 its noise -10) and must fail.
     Each launch must run the kernel that N routes to. Returns the largest
     absolute error over both variants."""
@@ -1071,8 +1080,7 @@ def check_stationary(label, families, dims, combine, N, keeps, seed, indefinite=
             families, combine, dims, *(x.double() for x in (D2, err, V, S, A, noise)),
             None if m is None else m.double(), True)
         K = st.build_general_plain(families, combine, dims, D2, V, S, A, noise, m)
-        loop = nll.factor_solve_inv_plain(K, err, torch.zeros_like(noise)) \
-            if N <= nll.MAX_PALLAS_N else None
+        loop = nll.factor_solve_inv_plain(K, err, torch.zeros_like(noise))
     bad = torch.isnan(want[0])
     if indefinite and not bool(bad[-1]):
         raise AssertionError(f"{label}: the indefinite model factors in the plain version")
@@ -1092,8 +1100,7 @@ def check_stationary(label, families, dims, combine, N, keeps, seed, indefinite=
             raise AssertionError(f"{label}: NLL NaN pattern {torch.isnan(got[0]).tolist()}, "
                                  f"plain {bad.tolist()}")
         for name, g, ref, ref64, lp in zip(("nll", "W", "a"), got, want, want64,
-                                           (None, None if loop is None else loop[2],
-                                            None if loop is None else loop[0])):
+                                           (None, loop[2], loop[0])):
             if g is None:
                 continue
             if bool(bad.any()) and lp is not None and not torch.equal(torch.isnan(g[bad]),
@@ -1114,30 +1121,58 @@ def check_stationary(label, families, dims, combine, N, keeps, seed, indefinite=
     return worst
 
 
+def edge_keeps(N, B, masked):
+    """Rows each of B models keeps at an edge check: all N, or with
+    `masked` the last two models 2N // 3 and N // 8 (from N = 64 every tile
+    past the first empty; above 256 every row of whole ranks of the
+    cluster at N <= 263 and from 353 on at the smallest C)."""
+    return (N,) * B if not masked else (N,) * (B - 2) + ((2 * N) // 3, N // 8)
+
+
 def phase_stationary_edges():
     """Phase 2b. The stationary kernels at the tile kernel's edges
-    (STATIONARY_EDGES) and past it (STATIONARY_COLUMN_NS: the column loop,
-    then its workspace): both variants against the plain version
-    (`check_stationary`) unmasked, with prefix masks of which the last empties
-    every tile past its first (N >= 64), and with an indefinite last model;
-    values and gradients through autograd (`check_general`), masked and
-    unmasked. Returns the largest absolute error."""
+    (STATIONARY_EDGES) and past it (STATIONARY_CLUSTER_NS; the cluster size
+    depends on N alone): both variants against the plain version
+    (`check_stationary`) unmasked, masked (`edge_keeps`) and with an
+    indefinite last model; values and gradients through autograd
+    (`check_general`), masked and unmasked; all at B = 3. Returns the
+    largest absolute error."""
+    from portfoliooptgp_tpu_torch.ops import stationary_nll as st
+
     worst = 0.0
-    for i, N in enumerate(STATIONARY_EDGES + STATIONARY_COLUMN_NS):
+    for i, N in enumerate(STATIONARY_EDGES + STATIONARY_CLUSTER_NS):
         seed = 40 + i
         worst = max(
             worst,
             check_stationary(f"edge N={N} unmasked se*matern32", ("se", "matern32"), (1, 1),
-                             "prod", N, (N, N, N), seed),
+                             "prod", N, edge_keeps(N, 3, False), seed),
             check_stationary(f"edge N={N} masked matern12*matern12", ("matern12", "matern12"),
-                             (1, 1), "prod", N, (N, (2 * N) // 3, N // 8), seed),
-            check_stationary(f"edge N={N} indefinite se+linear", ("se", "linear"), (1, 1),
-                             "sum", N, (N, N, N), seed, indefinite=True),
+                             (1, 1), "prod", N, edge_keeps(N, 3, True), seed),
+            check_stationary(f"edge N={N} indefinite se+linear", ("se", "linear"), (1, 1), "sum",
+                             N, edge_keeps(N, 3, False), seed, indefinite=True),
             check_general(f"edge N={N} grad se", ("se",), (1,), "prod", 3, N, False, seed),
             check_general(f"edge N={N} grad masked matern12*matern12", ("matern12", "matern12"),
                           (1, 1), "prod", 3, N, True, seed))
-        print(f"check stationary N={N} ({stationary_route(N)} kernel): both variants match "
-              f"plain unmasked, masked and indefinite (NaN patterns equal)", flush=True)
+        shape = "" if N <= st.MAX_TILE_N else f", C={st.cluster_shape(N)['C']}"
+        print(f"check stationary N={N} ({stationary_route(N)} kernel{shape}): both variants "
+              "match plain unmasked, masked and indefinite (NaN patterns equal)", flush=True)
+    return worst
+
+
+def check_timed(label, seed=31):
+    """One shape of STATIONARY_TIMED on the inputs stationary_times times
+    (general_operands(..., seed)): both variants' NLL, a and W against the
+    plain version (`check_stationary`) and, past the tile kernel, values and
+    gradients (`check_general`). Returns the largest absolute error."""
+    from portfoliooptgp_tpu_torch.ops import stationary_nll as st
+
+    families, dims, B, N, masked = STATIONARY_TIMED[label]
+    keeps = tuple(int(k) for k in N - (np.arange(B) * N) // (4 * B)) if masked else (N,) * B
+    worst = check_stationary(f"timed {label}", families, dims, "prod", N, keeps, seed)
+    print(f"check timed {label} B={B} N={N}: both variants match plain (NLL, a, W)", flush=True)
+    if N > st.MAX_TILE_N:
+        worst = max(worst, check_general(f"timed {label} grad", families, dims, "prod", B, N,
+                                         masked, seed))
     return worst
 
 
@@ -1154,7 +1189,8 @@ def stationary_times(st, families, dims, B, N, masked, seed=31):
     D2, V, S, A = torch.stack(d2s), torch.stack(vs), 1.0 / torch.stack(ls) ** 2, torch.stack(als)
     m = mask if masked else None
     eye = torch.eye(N, device=DEVICE).expand(B, N, N)
-    counter = "stationary_nll" if len(families) == 1 and not masked else "stationary_nll_general"
+    single = len(families) == 1 and dims == (1,) and not masked
+    counter = "stationary_nll" if single else "stationary_nll_general"
 
     def chain(with_w, factor):
         K = st.build_general_plain(families, "prod", dims, D2, V, S, A, noise, m)
@@ -1192,7 +1228,8 @@ def report_stationary_times(phase, label, row):
           f"({row['bound_value'][1]}); eager (CUDA events around back-to-back calls): kernel "
           f"{row['eager_ms_inv']:.4f} / {row['eager_ms_value']:.4f} ms, chain "
           f"{row['library_eager_ms_inv']:.4f} / {row['library_eager_ms_value']:.4f} ms; "
-          f"occupancy {st.ctas_per_sm(N, True)} / {st.ctas_per_sm(N, False)} CTAs per SM",
+          f"occupancy {st.ctas_per_sm(N, True)} / {st.ctas_per_sm(N, False)} CTAs per SM"
+          + ("" if N <= st.MAX_TILE_N else f"; cluster {json.dumps(st.cluster_shape(N))}"),
           flush=True)
 
 
@@ -1607,7 +1644,7 @@ def phase_headline():
     torch.cuda.synchronize()
     launches = st.LAUNCHES["stationary_nll"]
     ran = launches_since(before)
-    if launches < 1 or ran["tile"] < 1 or ran["column"]:
+    if launches < 1 or ran["tile"] < 1 or ran["cluster"]:
         raise AssertionError(f"the headline value+grad launched {launches} stationary_nll "
                              f"kernels ({ran}), not the tile kernel")
     if not (torch.all(torch.isfinite(nll)) and all(torch.all(torch.isfinite(g)) for g in grads)):
@@ -1615,16 +1652,20 @@ def phase_headline():
     vg_ms = cuda_ms(value_and_grad, reps=10)
     vg_device = value_grad_device_ms(value_and_grad)
     print(f"phase 3 headline B=128 N=256 se f32: tier {tier}, launches {launches} (tile kernel "
-          f"{ran['tile']}, column loop {ran['column']}), value+grad {vg_ms:.4f} ms "
+          f"{ran['tile']}, cluster kernel {ran['cluster']}), value+grad {vg_ms:.4f} ms "
           f"({1e3 / vg_ms * 128:.1f} evals/s); profiled, a value+grad keeps the device busy "
           f"{vg_device['device_ms']:.4f} ms, the stationary kernel {vg_device['kernel_ms']:.4f} "
           f"ms of it", flush=True)
-    rows = {}
-    for label in ("headline", "weekly menu", "monthly menu", "frontier grid A"):
+    rows, errs = {}, {"stationary_nll": 0.0, "stationary_nll_general": 0.0}
+    for label in ("headline", "weekly menu", "monthly menu", "frontier grid A", "NUTS bench",
+                  "two-year walk-forward"):
         families, dims, B, N, masked = STATIONARY_TIMED[label]
+        single = len(families) == 1 and dims == (1,) and not masked
+        name = "stationary_nll" if single else "stationary_nll_general"
+        errs[name] = max(errs[name], check_timed(label))
         rows[label] = stationary_times(st, families, dims, B, N, masked)
         report_stationary_times("phase 3", label, rows[label])
-    return dict(launches=launches, rows=rows, value_grad_ms=vg_ms,
+    return dict(launches=launches, rows=rows, errs=errs, value_grad_ms=vg_ms,
                 value_grad_device_ms=vg_device["device_ms"])
 
 
@@ -1655,7 +1696,7 @@ def phase_end_to_end():
         stages = {}
         warm, quality_warm = run_workflow(root, DEVICE, timings=stages)
         busy = device_busy(lambda: run_workflow(root, DEVICE), "e2e_profile.txt")
-    if launches < 1 or ran["tile"] < 1 or ran["column"]:
+    if launches < 1 or ran["tile"] < 1 or ran["cluster"]:
         raise AssertionError(f"the end-to-end run launched {launches} stationary_nll_general "
                              f"kernels ({ran}), not the tile kernel")
     results = []
@@ -1666,7 +1707,7 @@ def phase_end_to_end():
             raise AssertionError(f"{label} run does not match the goldens: {worst}")
     print(f"phase 4 end to end f32: cold {cold:.2f} s, warm {warm:.2f} s (step 4 "
           f"{stages['step4_s']:.2f} s, portfolio {stages['portfolio_s']:.2f} s), kernel "
-          f"launches {launches} (tile kernel {ran['tile']}, column loop {ran['column']}); "
+          f"launches {launches} (tile kernel {ran['tile']}, cluster kernel {ran['cluster']}); "
           f"goldens MATCH (worst {results[0]['metric']}: {results[0]['diff']:.4g})", flush=True)
     if busy["device_s"] > 0:
         print(f"  profiled warm pass: {busy['wall_s']:.2f} s wall, device busy "
@@ -2036,7 +2077,7 @@ def phase_single_asset():
     print(f"  goldens MATCH: alpha {q['alpha']:.6f} ({goldens['alpha']:.6f}), beta "
           f"{q['beta']:.3g} ({goldens['beta']:.3g}), in-sample f_mean RMS {rms:.4g}; "
           f"blocked_panel launches {launches}, stationary NLL launches {fused} (tile kernel "
-          f"{ran['tile']}, column loop {ran['column']})", flush=True)
+          f"{ran['tile']}, cluster kernel {ran['cluster']})", flush=True)
     if busy["device_s"] > 0:
         print(f"  profiled warm pass: {busy['wall_s']:.2f} s wall, device busy "
               f"{busy['device_s']:.3f} s ({100 * busy['device_s'] / warm:.1f}% of the "
@@ -2349,10 +2390,10 @@ def phase_frontier():
                 replay_nll={t: q["replay"][t]["nll"] for t in ("f64", "f32")})), flush=True)
         counts = runs[0][2]["launches"]
         stationary = counts["stationary_nll"] + counts["stationary_nll_general"]
-        if grid == "1y" and (stationary < 1 or counts["triangular_inverse"] or ran["column"] < 1):
+        if grid == "1y" and (stationary < 1 or counts["triangular_inverse"] or ran["cluster"] < 1):
             raise AssertionError(f"the one-year frontier run launched {counts} ({ran})")
-        print(f"  {grid} cold run: stationary tile kernel {ran['tile']}, column loop "
-              f"{ran['column']} launches", flush=True)
+        print(f"  {grid} cold run: stationary tile kernel {ran['tile']}, cluster kernel "
+              f"{ran['cluster']} launches", flush=True)
         if grid == "5y" and counts["triangular_inverse"] < 1:
             raise AssertionError(f"the five-year frontier run launched {counts}")
         print(f"  goldens MATCH on {grid} (JAX float64 NLL {g['final_nll']:.7g}, float32 "
@@ -2585,8 +2626,8 @@ def phase_multi_input():
             before = st.kernel_launches()
             elapsed, q = run_multi_input(root, MULTI_INPUT_CHIP_CASES, goldens, goldens32, DEVICE)
             ran = launches_since(before)
-            print(f"  multi-input {label} steps: stationary tile kernel {ran['tile']}, column "
-                  f"loop {ran['column']} launches", flush=True)
+            print(f"  multi-input {label} steps: stationary tile kernel {ran['tile']}, cluster "
+                  f"kernel {ran['cluster']} launches", flush=True)
             step4 = []
             _reset_launch_counts()
             wf_s, quality = run_workflow(root, DEVICE, kernel_pairs=pairs["poly"],
@@ -2909,6 +2950,8 @@ def main() -> int:
     errs["stationary_nll_general"] = max(errs["stationary_nll_general"],
                                          phase_stationary_edges())
     head = phase_headline()
+    for name, err in head["errs"].items():
+        errs[name] = max(errs[name], err)
     e2e = phase_end_to_end()
     errs["blocked_panel"] = phase_blocked_checks()
     sa = phase_single_asset()
@@ -2929,7 +2972,8 @@ def main() -> int:
              launches=e2e["launches"], max_abs_err=errs["stationary_nll_general"],
              **stationary_entry(e2e["row"], "inv"),
              value_only=stationary_entry(e2e["row"], "value"),
-             at_128x256=stationary_entry(head["rows"]["headline"], "inv")),
+             at_128x256=stationary_entry(head["rows"]["headline"], "inv"),
+             at_5x480=stationary_entry(head["rows"]["two-year walk-forward"], "inv")),
         dict(name="stationary_nll", route="cuda", source=src,
              replaces="portfoliooptgp_tpu/ops/pallas/stationary_nll.py:197",
              launches=head["launches"], max_abs_err=errs["stationary_nll"],
@@ -2940,7 +2984,7 @@ def main() -> int:
              headline_value_grad_device_ms=head["value_grad_device_ms"],
              **{f"at_{B}x{N}": stationary_entry(head["rows"][label], "inv")
                 for label, (_, _, B, N, _) in STATIONARY_TIMED.items()
-                if label in ("weekly menu", "monthly menu", "frontier grid A")}),
+                if label in ("weekly menu", "monthly menu", "frontier grid A", "NUTS bench")}),
         dict(name="blocked_panel", route="cuda",
              source="portfoliooptgp_tpu_torch/csrc/blocked_panel.cu",
              replaces="portfoliooptgp_tpu/ops/pallas/blocked_nll.py:70",

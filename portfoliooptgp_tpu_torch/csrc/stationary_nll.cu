@@ -15,48 +15,78 @@
 // the first indefinite pivot k, a[k:] and the NLL are NaN and W[i][c] is NaN
 // exactly for i >= k, c <= i, as in a column loop.
 //
-// Two kernels, chosen by N at the entry point:
+// Two kernels, chosen by N at the entry point (N > 512 is refused: the
+// router's fused window ends there):
 //
 // N <= 256: the tile kernel (stationary_nll_tile_kernel), csrc/dense_nll.cu's
 // design on the tile core it shares with it (nll_tile.cuh): 256 threads, the
 // lower triangle of K_b padded to Np = 32 T with an identity block as
 // T (T + 1) / 2 tiles of 32 x 32 (36-float rows) in shared memory, factored
 // in 32-column sub-panels by a warp factor, row solves (err rides along as
-// one more row) and rank-32 updates, three barriers a sub-panel (24 at
-// N = 256, where the column loop takes 768); with the flag, W formed after
-// the factor a column per thread and written once, in coalesced rows. The
-// one difference from the dense kernel is that K_b is built here, straight
-// into the tiles, as the TPU kernel builds it on the chip, in place of
-// dense_nll.cu's copy of a prebuilt K: each entry in the column loop's (and
-// build_general_plain's) order of operations, masked rows as identity rows.
+// one more row) and rank-32 updates, three barriers a sub-panel; with the
+// flag, W formed after the factor a column per thread and written once, in
+// coalesced rows. The one difference from the dense kernel is that K_b is
+// built here, straight into the tiles, as the TPU kernel builds it on the
+// chip, in place of dense_nll.cu's copy of a prebuilt K: each entry in
+// build_general_plain's order of operations, masked rows as identity rows.
 // The d2 matrices are shared by the batch and read through L2 by every CTA;
 // a warp reads 32 consecutive floats of a d2 row, and a thread issues the
 // loads of 8 entries (2 tiles) before it uses any, so that one L2 round
 // trip serves 8 entries, and evaluates φ in one family's code, chosen once
-// per atom (build_tiles). Rounding is the JAX kernel's
-// (chol_tile.cuh: sqrt and division correctly rounded). Shared memory is
-// dense_nll.cu's layout (205,952 B at N = 256 with W, 177,280 B without);
-// the mask and the model's parameters sit in the factor's scratch until the
-// build is done. Registers: 255 a thread (about 50 B of spills), one CTA an
-// SM; B = 128 is one wave on 132 SMs.
+// per atom (build_tiles). Rounding is the JAX kernel's (chol_tile.cuh: sqrt
+// and division correctly rounded). Shared memory is dense_nll.cu's layout
+// (205,952 B at N = 256 with W, 177,280 B without); the mask and the
+// model's parameters sit in the factor's scratch until the build is done.
+// Registers: 255 a thread (about 50 B of spills), one CTA an SM; B = 128 is
+// one wave on 132 SMs.
 //
-// N > 256 (frontier grid A's 262, the router's window up to 512): the column
-// loop (stationary_nll_kernel), one CTA of 1024 threads per model, K_b as a
-// packed lower triangle in shared memory, a right-looking Cholesky with the
-// forward solve, the log-det and the row operations that turn I into L^{-1}
-// in the same column loop, three barriers a column, W rewritten in global
-// memory at each column. Masked rows are identity rows; any N and B are
-// taken. Where the packed factor does not fit shared memory (N above ~339)
-// the wrapper passes a global-memory workspace and the same code runs on it.
+// 256 < N <= 512 (frontier grid A's 262, a walk-forward on a one- to
+// two-year window, the NUTS posterior's 512): the cluster kernel
+// (stationary_nll_cluster_kernel), the same tiles, T = 9 .. 16, spread over
+// a thread-block cluster of C CTAs per model whose shared memory the CTAs
+// read and write through the cluster's window (DSMEM): tile row R lives in
+// rank R mod C, which builds its tiles of K_b itself (build_tiles on its
+// rows), so the factor stays on chip at every N of the window. Sub-panel k
+// takes three phases and two cluster barriers:
+//   (a) the owner of tile row k factors the diagonal tile (factor_diagonal)
+//       and writes its transpose, diagonal and estimates into every rank;
+//   (b) every rank solves its rows below the sub-panel (and the owner of k
+//       err's block k) and writes each solved row into the panel buffer of
+//       every rank (and err's block into every rank's copy of a);
+//   (c) every rank applies the rank-32 updates to its own trailing tiles
+//       (update_half) and to its blocks of a, from its local panel only:
+//       the inner loop touches no remote memory.
+// With the flag, W = L^{-1} is split by columns once L is final: rank r
+// forms tile columns r, r + C, ..., a column per thread (form_inverse's
+// scheme), g warps on each (the largest power of two that the rank's 8
+// warps hold), which split the tile products of each row block J with W's
+// earlier row blocks and meet through shared memory before the solve; for
+// each row block J every rank copies L's tiles (J, r .. J - 1) and the
+// transposed diagonal tile from their owner into its panel buffer. A
+// column's earlier row blocks of W are read back from W itself in global
+// memory (L2-resident), so the shared memory holds L and nothing of W.
+// Shared memory a CTA (the largest rank's tiles, the panel of T - 1 tiles,
+// a transpose, scratch, three Np vectors and the inverse's partial sums;
+// the same layout in every rank) sets C: the smallest of 2, 4 and 8 that
+// fits the 232,448 B a block may use, C = 2 up to T = 11 (N = 352), 4 up to
+// 14 (448), 8 above. C, and with it g and the order in which a column's
+// partial sums are added, depends on N alone: a model's a and W round the
+// same whatever the batch beside it. 256 threads, one CTA an SM.
 //
 // Bound on an H100 (SXM, 700 W): per model N^3/3 flops of factor plus N^3/3
 // of inverse. At B = 128, N = 256 with W that is 1.4 GFLOP of fp32 (~21 us
 // at 67 TFLOP/s) against 34 MB of W written (~10 us at 3.35 TB/s):
-// operations bound. At the walk-forward shape (B = 5, N = 77) five CTAs
-// occupy 5 of 132 SMs and the time is the latency of the chain: three warp
-// factors of 32 dependent pivots, their row solves and the inverse's last
-// row blocks (tools/kernel_timeline.py).
+// operations bound; at (20, 262) 0.0036 ms and at the NUTS posterior's
+// (8, 512) with W (ARD, 4 d2 matrices) 0.0109 ms, also operations
+// (chip_smoke.nll_bound_ms). Neither kernel comes near it: at the walk-forward
+// shape (B = 5, N = 77) five CTAs occupy 5 of 132 SMs and the time is the
+// latency of the chain: the warp factors of 32 dependent pivots, their row
+// solves, the inverse's last row blocks (tools/kernel_timeline.py); above
+// 256 the cluster's T warp factors, 2 T cluster barriers and the longest
+// column tile of W (T (T - 1) / 2 tile products over its g warps) set the
+// pace.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -64,11 +94,15 @@
 #include "chol_tile.cuh"
 #include "nll_tile.cuh"
 
+namespace cg = cooperative_groups;
+
 #define MAX_ATOMS 8
 #define MAX_MATS 32
-#define THREADS 1024  // 32 warps: the column loop's shared-memory latency needs them
-#define TILE_THREADS 256  // the tile kernel: a warp per tile column (nll_tile.cuh)
-#define MAX_TILE_N 256    // the tile kernel's N (T <= 8 tiles); the column loop above it
+#define TILE_THREADS 256  // both kernels: a warp per tile column (nll_tile.cuh)
+#define MAX_TILE_N 256    // the tile kernel's N (T <= 8 tiles); the cluster kernel above it
+#define MAX_N 512         // the cluster kernel's N (T <= 16 tiles)
+#define MAX_T (MAX_N / SP)
+#define MAX_CLUSTER 8     // the portable cluster size
 #define GROUP 2           // tiles a thread builds at once: 8 entries, their loads in flight together
 
 enum Family {
@@ -107,17 +141,6 @@ __device__ __forceinline__ float phi_of(float u, float al) {
   return (1.0f + SQRT5 * r + (5.0f / 3.0f) * u) * expf(-SQRT5 * r);
 }
 
-// φ of a family chosen at run time (the column loop's form).
-__device__ __forceinline__ float phi(int fam, float u, float al) {
-  if (fam == FAM_SE) return phi_of<FAM_SE>(u, al);
-  if (fam == FAM_RQ) return phi_of<FAM_RQ>(u, al);
-  if (fam == FAM_LINEAR) return phi_of<FAM_LINEAR>(u, al);
-  if (fam == FAM_PERIODIC_SE) return phi_of<FAM_PERIODIC_SE>(u, al);
-  if (fam == FAM_MATERN12) return phi_of<FAM_MATERN12>(u, al);
-  if (fam == FAM_MATERN32) return phi_of<FAM_MATERN32>(u, al);
-  return phi_of<FAM_MATERN52>(u, al);
-}
-
 #define NE (4 * GROUP)  // entries a thread builds at once
 
 // E[e] ⊕= v φ_F(U[e]) for the NE entries of a group: one family's code,
@@ -132,8 +155,10 @@ __device__ __forceinline__ void combine_atom(float (&E)[NE], const float (&U)[NE
   }
 }
 
-// Build the T (T + 1) / 2 tiles of K_b (rows past N: an identity block) in
-// shared memory. Warp w builds rows w, w + 8, w + 16 and w + 24 of each tile,
+// Build ntiles tiles of K_b (rows past N: an identity block) in shared
+// memory: the tile rows R0, R0 + dR, ..., each from S = 0 to R, stored in
+// that order (the tile kernel: R0 = 0, dR = 1, all T (T + 1) / 2 tiles; the
+// cluster kernel: a rank's rows). Warp w builds rows w, w + 8, w + 16 and w + 24 of each tile,
 // lane l its column l, so a warp reads 32 consecutive floats of a d2 row;
 // GROUP tiles at a time, the NE loads of each d2 matrix issued before any is
 // used (entries outside the lower triangle load d2[0] and are not used).
@@ -145,26 +170,25 @@ __device__ __forceinline__ void combine_atom(float (&E)[NE], const float (&U)[NE
 // against 0.153 now.
 // mk is the mask padded with zeros to Np; prm holds model b's s (MAX_MATS
 // floats), v and α (MAX_ATOMS each), then the atoms' families and d2 counts
-// (MAX_ATOMS ints each). Each entry is the column loop's, in its order of
-// operations; zeros above the diagonal.
+// (MAX_ATOMS ints each). Each entry is build_general_plain's, in its order
+// of operations; zeros above the diagonal.
 __device__ __noinline__ void build_tiles(float* tiles, const float* __restrict__ d2s,
                                             const float* mk, const float* prm, float nz, int N,
-                                            int T, int J, int prod) {
+                                            int R0, int dR, int ntiles, int J, int prod) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ntiles = T * (T + 1) / 2;
   const size_t NN = (size_t)N * N;
   const float* sv = prm;
   const float* vv = prm + MAX_MATS;
   const float* av = vv + MAX_ATOMS;
   const int* fams = reinterpret_cast<const int*>(av + MAX_ATOMS);
   const int* dims = fams + MAX_ATOMS;
-  int R = 0, S = 0;  // the tile (R, S) that the next group starts with
+  int R = R0, S = 0;  // the tile (R, S) that the next group starts with
   for (int t0 = 0; t0 < ntiles; t0 += GROUP) {
     int Rg[GROUP], Sg[GROUP];
 #pragma unroll
     for (int g = 0; g < GROUP; ++g) {
       Rg[g] = R, Sg[g] = S;
-      if (++S > R) ++R, S = 0;
+      if (++S > R) R += dR, S = 0;
     }
     int idx[NE];
     float E[NE];
@@ -219,6 +243,37 @@ __device__ __noinline__ void build_tiles(float* tiles, const float* __restrict__
   }
 }
 
+// Model b's operands into shared memory for build_tiles: prm (its s, v and
+// α, the atoms' families and d2 counts), mk (the mask, zeros past N) and
+// ay (err, zeros past N). The atoms' fields by constant indices (an index
+// known only at run time would copy the struct to local memory), the
+// model's parameters by thread.
+__device__ __forceinline__ void stage_model(float* prm, float* mk, float* ay,
+                                            const float* __restrict__ err,
+                                            const float* __restrict__ mask,
+                                            const float* __restrict__ vs,
+                                            const float* __restrict__ ss,
+                                            const float* __restrict__ als, int B, int b, int N,
+                                            int Np, const Atoms& atoms) {
+  const int tid = threadIdx.x;
+  int JD = 0;
+  int* fams = reinterpret_cast<int*>(prm + MAX_MATS + 2 * MAX_ATOMS);
+#pragma unroll
+  for (int q = 0; q < MAX_ATOMS; ++q) {
+    JD += q < atoms.J ? atoms.dims[q] : 0;
+    if (tid == q) fams[q] = atoms.family[q], fams[MAX_ATOMS + q] = atoms.dims[q];
+  }
+  if (tid < JD) prm[tid] = ss[(size_t)tid * B + b];
+  if (tid < atoms.J) {
+    prm[MAX_MATS + tid] = vs[(size_t)tid * B + b];
+    prm[MAX_MATS + MAX_ATOMS + tid] = als[(size_t)tid * B + b];
+  }
+  for (int i = tid; i < Np; i += TILE_THREADS) {
+    ay[i] = i < N ? err[(size_t)b * N + i] : 0.0f;
+    mk[i] = i < N ? (mask ? mask[(size_t)b * N + i] : 1.0f) : 0.0f;
+  }
+}
+
 template <bool WITH_W>
 __global__ void __launch_bounds__(TILE_THREADS, 1) stationary_nll_tile_kernel(
     const float* __restrict__ d2s,    // (JD, N, N)
@@ -249,26 +304,9 @@ __global__ void __launch_bounds__(TILE_THREADS, 1) stationary_nll_tile_kernel(
   // Without W one transpose buffer serves every step (as in dense_nll.cu).
   auto Lt = [&](int k) { return LT + (WITH_W ? k : 0) * SP * SP; };
 
-  // The atoms' fields by constant indices (an index known only at run time
-  // would copy the struct to local memory), the model's parameters by thread.
-  int JD = 0;
-  int* fams = reinterpret_cast<int*>(prm + MAX_MATS + 2 * MAX_ATOMS);
-#pragma unroll
-  for (int q = 0; q < MAX_ATOMS; ++q) {
-    JD += q < atoms.J ? atoms.dims[q] : 0;
-    if (tid == q) fams[q] = atoms.family[q], fams[MAX_ATOMS + q] = atoms.dims[q];
-  }
-  if (tid < JD) prm[tid] = ss[(size_t)tid * B + b];
-  if (tid < atoms.J) {
-    prm[MAX_MATS + tid] = vs[(size_t)tid * B + b];
-    prm[MAX_MATS + MAX_ATOMS + tid] = als[(size_t)tid * B + b];
-  }
-  for (int i = tid; i < Np; i += TILE_THREADS) {
-    ay[i] = i < N ? err[(size_t)b * N + i] : 0.0f;
-    mk[i] = i < N ? (mask ? mask[(size_t)b * N + i] : 1.0f) : 0.0f;
-  }
+  stage_model(prm, mk, ay, err, mask, vs, ss, als, B, b, N, Np, atoms);
   __syncthreads();
-  build_tiles(tiles, d2s, mk, prm, noise[b], N, T, atoms.J, atoms.combine);
+  build_tiles(tiles, d2s, mk, prm, noise[b], N, 0, 1, T * (T + 1) / 2, atoms.J, atoms.combine);
   __syncthreads();
 
   // The factor, a = L^{-1} err and the log-det, one 32-column sub-panel a
@@ -368,12 +406,103 @@ static cudaError_t launch_tiles(const float* d2s, const float* err, const float*
   return cudaGetLastError();
 }
 
-// -- the column loop (N > 256) --------------------------------------------
+// -- the cluster kernel (256 < N <= 512) ------------------------------------
 
-__device__ __forceinline__ size_t tri(int i) { return (size_t)i * (i + 1) / 2; }
+// Tiles of L that rank `rank` of a C-CTA cluster holds: tile rows rank,
+// rank + C, ... below T, each from S = 0 to R.
+__host__ __device__ __forceinline__ int own_tiles(int T, int C, int rank) {
+  int n = 0;
+  for (int R = rank; R < T; R += C) n += R + 1;
+  return n;
+}
+
+// Index of tile (R, S) among the tiles of R's owner `rank`, row by row.
+__device__ __forceinline__ int own_index(int R, int S, int rank, int C) {
+  const int i = (R - rank) / C;
+  return i * (rank + 1) + C * i * (i - 1) / 2 + S;
+}
+
+// The tile columns of W that rank `rank` forms: rank, rank + C, ... below T.
+__host__ __device__ __forceinline__ int own_columns(int T, int C, int rank) {
+  return (T - 1 - rank) / C + 1;
+}
+
+// Warps on each of n tile columns of W: the largest power of two g with
+// g n <= 8 warps, and at most G.
+__host__ __device__ __forceinline__ int warps_per_column(int n, int G) {
+  int g = 1;
+  while (2 * g * n <= TILE_THREADS / 32 && 2 * g <= G) g *= 2;
+  return g;
+}
+
+// The cluster kernel's shared memory in floats from its base, the same in
+// every rank (so that a peer's buffer is at the same offset as one's own).
+struct ClusterLayout {
+  int panel;  // T - 1 tiles: (S, k) in slot S - 1; the inverse's row block of L
+  int ltc;    // SP x SP: the current diagonal tile of L transposed
+  int ay;     // Np: err, then a = L^{-1} err (own blocks, and every block once solved)
+  int dg;     // Np: diag L
+  int yd;     // Np: the estimates of 1 / diag L
+  int lt;     // SP x SP: (a)'s scratch; the mask and the atoms until K is built
+  int red;    // 32: block reduction
+  int lds;    // MAX_T: Σ log diag of each diagonal tile (read in rank 0)
+  int part;   // (g - 1) SP x SP a tile column of W: the inverse's partial sums
+  int total;
+};
+
+// The layout at T tiles, C ranks and at most G warps a tile column of W.
+__host__ __device__ __forceinline__ ClusterLayout cluster_layout(int T, int C, int G) {
+  int most = 0, parts = 0;
+  for (int r = 0; r < C; ++r) {
+    const int n = own_tiles(T, C, r), nc = own_columns(T, C, r);
+    const int p = (warps_per_column(nc, G) - 1) * nc;
+    most = n > most ? n : most;
+    parts = p > parts ? p : parts;
+  }
+  ClusterLayout l;
+  l.panel = most * TILE;
+  l.ltc = l.panel + (T - 1) * TILE;
+  l.ay = l.ltc + SP * SP;
+  l.dg = l.ay + SP * T;
+  l.yd = l.dg + SP * T;
+  l.lt = l.yd + SP * T;
+  l.red = l.lt + SP * SP;
+  l.lds = l.red + 32;
+  l.part = l.lds + MAX_T;
+  l.total = l.part + parts * SP * SP;
+  return l;
+}
+
+// nll_tile.cuh's product with W's entries of column c in row block S
+// already in registers (w): the same operations in the same order.
+__device__ __forceinline__ void product_regs(float (&x)[SP], const float (&w)[SP],
+                                             const float* Lt, int m0) {
+#pragma unroll
+  for (int m = 0; m < SP; m += 4) {
+#pragma unroll
+    for (int rr = 0; rr < SP; ++rr) {
+      const float4 v = *reinterpret_cast<const float4*>(Lt + rr * LDT + m);
+      const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float t = fmaf(-vs[u], w[m + u], x[rr]);
+        x[rr] = m + u >= m0 ? t : x[rr];
+      }
+    }
+  }
+}
+
+// Column c of W's row block S (rows 32 S .. 32 S + 31 < N) from W in global
+// memory: Wc points at W_b's column c. Row block S was written by warp 0 of
+// the column's g warps (the same thread where g = 1); the __syncthreads that
+// ends row block S makes it visible to the column's other warps.
+__device__ __forceinline__ void load_w(float (&w)[SP], const float* Wc, int S, int N) {
+#pragma unroll
+  for (int m = 0; m < SP; ++m) w[m] = Wc[(size_t)(SP * S + m) * N];
+}
 
 template <bool WITH_W>
-__global__ void __launch_bounds__(THREADS) stationary_nll_kernel(
+__global__ void __launch_bounds__(TILE_THREADS, 1) stationary_nll_cluster_kernel(
     const float* __restrict__ d2s,    // (JD, N, N)
     const float* __restrict__ err,    // (B, N)
     const float* __restrict__ mask,   // (B, N) or null for all ones
@@ -383,100 +512,208 @@ __global__ void __launch_bounds__(THREADS) stationary_nll_kernel(
     const float* __restrict__ noise,  // (B,)
     float* __restrict__ nll,          // (B,)
     float* __restrict__ a_out,        // (B, N)
-    float* __restrict__ W,            // (B, N, N) when WITH_W
-    float* __restrict__ workspace,    // (B, N(N+1)/2) or null: factor in shared memory
-    int B, int N, Atoms atoms) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const size_t NN = (size_t)N * N;
+    float* W,                         // (B, N, N) when WITH_W; read back by its writer
+    int B, int N, int C, int G, Atoms atoms) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), b = blockIdx.x / C;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int T = (N + SP - 1) / SP, Np = SP * T;
+  const ClusterLayout ly = cluster_layout(T, C, G);
+  float* tiles = smem;  // this rank's tiles of K, then L (own_index)
+  float* panel = smem + ly.panel;
+  float* ltc = smem + ly.ltc;
+  float* ay = smem + ly.ay;
+  float* dg = smem + ly.dg;
+  float* yd = smem + ly.yd;
+  float* lt = smem + ly.lt;
+  float* red = smem + ly.red;
+  float* lds = smem + ly.lds;
+  // the same buffer in rank q's shared memory
+  auto at = [&](float* p, int q) { return cluster.map_shared_rank(p, (unsigned)q); };
 
-  float* a = smem;        // N: err, then L^{-1} err
-  float* col = a + N;     // N: column k of L, scaled
-  float* red = col + N;   // 32: block reduction
-  float* L = workspace ? workspace + (size_t)b * tri(N) : red + 32;
-  float* Wb = WITH_W ? W + (size_t)b * NN : nullptr;
-
-  // 1. Build the packed lower triangle of K_b.
-  const float nz = noise[b];
-  for (size_t t = tid; t < NN; t += blockDim.x) {
-    const int i = (int)(t / N);
-    const int j = (int)(t - (size_t)i * N);
-    if (j > i) continue;
-    float E = atoms.combine ? 1.0f : 0.0f;
-    int off = 0;
-    for (int q = 0; q < atoms.J; ++q) {
-      float U = 0.0f;
-      for (int d = 0; d < atoms.dims[q]; ++d)
-        U += ss[(size_t)(off + d) * B + b] * d2s[(size_t)(off + d) * NN + t];
-      off += atoms.dims[q];
-      const float term = vs[(size_t)q * B + b] * phi(atoms.family[q], U, als[(size_t)q * B + b]);
-      E = atoms.combine ? E * term : E + term;
-    }
-    const float mi = mask ? mask[(size_t)b * N + i] : 1.0f;
-    const float mj = mask ? mask[(size_t)b * N + j] : 1.0f;
-    float k = (mi * mj) * E;
-    if (i == j) k += mi * nz + (1.0f - mi);
-    L[tri(i) + j] = k;
-  }
-  for (int i = tid; i < N; i += blockDim.x) a[i] = err[(size_t)b * N + i];
-  if (WITH_W)
-    for (size_t t = tid; t < NN; t += blockDim.x) Wb[t] = (t / N == t % N) ? 1.0f : 0.0f;
+  stage_model(lt + MAX_N, lt, ay, err, mask, vs, ss, als, B, b, N, Np, atoms);
   __syncthreads();
+  build_tiles(tiles, d2s, lt, lt + MAX_N, noise[b], N, rank, C, own_tiles(T, C, rank), atoms.J,
+              atoms.combine);
+  cluster.sync();  // every rank has started and built its tiles
 
-  // 2. Right-looking Cholesky with the solve, log-det and inverse fused.
-  float logdet = 0.0f;
-  for (int k = 0; k < N; ++k) {
-    const float d = sqrtf(L[tri(k) + k]);
-    const float ak = a[k] / d;
-    __syncthreads();  // every thread has read the pivot and a[k]
-    for (int i = k + 1 + tid; i < N; i += blockDim.x) {
-      const float l = L[tri(i) + k] / d;
-      L[tri(i) + k] = l;
-      col[i] = l;
-      a[i] -= l * ak;
+  for (int k = 0; k < T; ++k) {
+    const int owner = k % C;
+    if (rank == owner && warp == 0) {  // (a)
+      float* D = tiles + own_index(k, k, rank, C) * TILE;
+      const float s = factor_diagonal<LDT>(D, dg + SP * k, yd + SP * k, lt, N - SP * k);
+      float x[SP];
+      load_row(x, D + lane * LDT);
+      const float dl = dg[SP * k + lane], yl = yd[SP * k + lane];
+      for (int q = 0; q < C; ++q) {
+        float* Lq = at(ltc, q);
+#pragma unroll
+        for (int c = 0; c < SP; ++c) Lq[c * SP + lane] = x[c];
+        at(dg, q)[SP * k + lane] = dl;
+        at(yd, q)[SP * k + lane] = yl;
+      }
+      if (lane == 0) at(lds, 0)[k] = s;
     }
-    if (tid == 0) {
-      L[tri(k) + k] = d;
-      a[k] = ak;
-      logdet += logf(d);
-    }
-    if (WITH_W)
-      for (int c = tid; c <= k; c += blockDim.x) Wb[(size_t)k * N + c] /= d;
-    __syncthreads();  // column k and row k of W are final
-    for (int i = k + 1 + warp; i < N; i += nwarps) {
-      const float li = col[i];
-      float* Li = L + tri(i);
-      for (int j = k + 1 + lane; j <= i; j += 32) Li[j] -= li * col[j];
-    }
-    if (WITH_W) {
-      const float* Wk = Wb + (size_t)k * N;
-      for (int r = k + 1 + warp; r < N; r += nwarps) {
-        const float lr = col[r];
-        float* Wr = Wb + (size_t)r * N;
-        for (int c = lane; c <= k; c += 32) Wr[c] -= lr * Wk[c];
+    cluster.sync();
+
+    // (b): this rank's rows below the sub-panel (its tile rows R1, R1 + C,
+    // ...), a thread each, and in the owner err's block k; each solved row
+    // goes to every rank's panel (err's block to every rank's a).
+    int R1 = rank;
+    while (R1 <= k) R1 += C;
+    const int nrows = R1 < T ? SP * ((T - 1 - R1) / C + 1) : 0;
+    const int solves = nrows + (rank == owner ? 1 : 0);
+    for (int u = tid; u < solves; u += TILE_THREADS) {
+      const bool e = u == nrows;
+      const int R = R1 + (u / SP) * C, m = u % SP;
+      float* row = e ? ay + SP * k : tiles + own_index(R, k, rank, C) * TILE + m * LDT;
+      float r[SP];
+      load_row(r, row);
+      solve(r, ltc, dg + SP * k, yd + SP * k, 0);
+      store_row(row, r);
+      for (int q = 0; q < C; ++q) {
+        if (!e)
+          store_row(at(panel, q) + (R - 1) * TILE + m * LDT, r);
+        else if (q != rank)
+          store_row(at(ay, q) + SP * k, r);
       }
     }
-    __syncthreads();  // trailing block updated
+    cluster.sync();
+
+    // (c): two units a pair (R, S) of this rank's trailing tiles, k < S <= R,
+    // enumerated row by row, then one for its blocks of a; local memory only.
+    int pairs = 0;
+    for (int R = R1; R < T; R += C) pairs += R - k;
+    const int units = 2 * pairs + (nrows > 0 ? 1 : 0);
+    for (int u = warp; u < units; u += TILE_THREADS / 32) {
+      if (u == 2 * pairs) {  // a[j] -= sum_m a[32 k + m] L(j, 32 k + m), j in this rank's rows
+        const float4* ak = reinterpret_cast<const float4*>(ay + SP * k);
+        for (int j = lane; j < nrows; j += 32) {
+          const int R = R1 + (j / SP) * C, m = j % SP;
+          const float4* Lj = reinterpret_cast<const float4*>(panel + (R - 1) * TILE + m * LDT);
+          float s = 0.0f;
+#pragma unroll
+          for (int q = 0; q < SP / 4; ++q) {
+            const float4 v = Lj[q], w = ak[q];
+            s = fmaf(v.x, w.x, s);
+            s = fmaf(v.y, w.y, s);
+            s = fmaf(v.z, w.z, s);
+            s = fmaf(v.w, w.w, s);
+          }
+          ay[SP * R + m] -= s;
+        }
+        continue;
+      }
+      int p = u >> 1, R = R1;
+      while (p >= R - k) p -= R - k, R += C;
+      const int S = k + 1 + p;
+      update_half(tiles + own_index(R, S, rank, C) * TILE, panel + (R - 1) * TILE,
+                  panel + (S - 1) * TILE, u & 1);
+    }
+    // the next diagonal tile's owner factors it from its own updates; the
+    // other ranks meet the next cluster barrier first
+    if (rank == (k + 1) % C) __syncthreads();
   }
 
-  // 3. Outputs: a, and nll = ½‖a‖² + Σ log d + ½ N log 2π.
-  float quad = 0.0f;
-  for (int i = tid; i < N; i += blockDim.x) {
-    const float ai = a[i];
-    a_out[(size_t)b * N + i] = ai;
-    quad += ai * ai;
+  if (WITH_W) {
+    // W = L^{-1} by columns: the rank's tile columns Jc = rank + i C, i < nc,
+    // g warps each; warp w takes tile column i = w / g, its thread c column
+    // c. Row block J of L comes from its owner, the tiles (J, rank .. J - 1)
+    // into the panel and (J, J) transposed into ltc. The g warps of a column
+    // split the products with W's earlier row blocks S (warp q takes S = Jc +
+    // q, Jc + q + g, ...); the first adds the others' sums (through `part`,
+    // in the order of q) and solves against the diagonal tile.
+    const int nc = own_columns(T, C, rank), g = warps_per_column(nc, G);
+    const int i = warp / g, q = warp % g, Jc = rank + i * C, c = SP * Jc + lane;
+    const bool mine = i < nc && c < N;
+    float* Wc = W + (size_t)b * N * N + c;
+    // column c's row rr of warp p's sum at part[((p - 1) SP + rr) SP]
+    float* part = smem + ly.part + i * (g - 1) * SP * SP + lane;
+    for (int J = 0; J < T; ++J) {
+      if (J >= rank) {
+        const int src_rank = J % C, n = (J - rank + 1) * SP * SP / 4;
+        const float* src = at(tiles, src_rank);
+        for (int q0 = tid; q0 < n; q0 += 4 * TILE_THREADS) {
+          float4 v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int t = q0 + e * TILE_THREADS, s = t >> 8, m = (t >> 3) & 31, c4 = t & 7;
+            if (t < n)
+              v[e] = *reinterpret_cast<const float4*>(
+                  src + own_index(J, rank + s, src_rank, C) * TILE + m * LDT + 4 * c4);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int t = q0 + e * TILE_THREADS, s = t >> 8, m = (t >> 3) & 31, c4 = t & 7;
+            if (t >= n) continue;
+            if (rank + s < J) {
+              *reinterpret_cast<float4*>(panel + s * TILE + m * LDT + 4 * c4) = v[e];
+            } else {
+              ltc[(4 * c4) * SP + m] = v[e].x;
+              ltc[(4 * c4 + 1) * SP + m] = v[e].y;
+              ltc[(4 * c4 + 2) * SP + m] = v[e].z;
+              ltc[(4 * c4 + 3) * SP + m] = v[e].w;
+            }
+          }
+        }
+      }
+      __syncthreads();
+      float x[SP];
+#pragma unroll
+      for (int rr = 0; rr < SP; ++rr) x[rr] = q == 0 && SP * J + rr == c ? 1.0f : 0.0f;
+      if (mine && J >= Jc) {
+        float w[SP];
+        if (Jc + q < J) load_w(w, Wc, Jc + q, N);
+        for (int S = Jc + q; S < J; S += g) {
+          float wn[SP];
+          if (S + g < J) load_w(wn, Wc, S + g, N);  // in flight during the product
+          product_regs(x, w, panel + (S - rank) * TILE, S == Jc ? lane : 0);
+#pragma unroll
+          for (int m = 0; m < SP; ++m) w[m] = wn[m];
+        }
+        if (q > 0) {
+#pragma unroll
+          for (int rr = 0; rr < SP; ++rr) part[((q - 1) * SP + rr) * SP] = x[rr];
+        }
+      }
+      if (g > 1) __syncthreads();
+      if (mine && q == 0) {
+        if (J >= Jc) {
+          for (int p = 1; p < g; ++p) {
+#pragma unroll
+            for (int rr = 0; rr < SP; ++rr) x[rr] += part[((p - 1) * SP + rr) * SP];
+          }
+          solve(x, ltc, dg + SP * J, yd + SP * J, J == Jc ? lane : 0);
+        }
+#pragma unroll
+        for (int rr = 0; rr < SP; ++rr)
+          if (SP * J + rr < N) Wc[(size_t)(SP * J + rr) * N] = x[rr];  // 0 above the diagonal
+      }
+      __syncthreads();  // the panel, ltc and part are read before the next row block's copy
+    }
+    cluster.sync();  // no rank leaves while a peer still reads its tiles
   }
-  for (int o = 16; o > 0; o >>= 1) quad += __shfl_xor_sync(0xffffffffu, quad, o);
-  if (lane == 0) red[warp] = quad;
-  __syncthreads();
-  if (tid == 0) {
-    float total = 0.0f;
-    for (int w = 0; w < nwarps; ++w) total += red[w];
-    nll[b] = 0.5f * total + logdet + (float)(0.5 * N * 1.8378770664093453);
+
+  // a and nll = ½‖a‖² + Σ log diag L + ½ N log 2π, in rank 0, which holds
+  // every block of a and every diagonal tile's log sum.
+  if (rank == 0) {
+    float quad = 0.0f;
+    for (int i = tid; i < N; i += TILE_THREADS) {
+      const float ai = ay[i];
+      a_out[(size_t)b * N + i] = ai;
+      quad += ai * ai;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) quad += __shfl_xor_sync(FULL, quad, o);
+    if (lane == 0) red[warp] = quad;
+    __syncthreads();
+    if (tid == 0) {
+      float total = 0.0f, ld = 0.0f;
+      for (int w = 0; w < TILE_THREADS / 32; ++w) total += red[w];
+      for (int k = 0; k < T; ++k) ld += lds[k];
+      nll[b] = 0.5f * total + ld + (float)(0.5 * N * 1.8378770664093453);
+    }
   }
 }
 
@@ -490,52 +727,92 @@ static int smem_optin() {
   return bytes;
 }
 
-static size_t smem_bytes(int N, bool factor_in_smem) {
-  size_t bytes = (size_t)(2 * N + 32) * sizeof(float);
-  if (factor_in_smem) bytes += (size_t)N * (N + 1) / 2 * sizeof(float);
-  return bytes;
+template <bool WITH_W>
+static cudaError_t configure_cluster() {
+  static bool configured = false;
+  if (configured) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(stationary_nll_cluster_kernel<WITH_W>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_optin());
+  if (e == cudaSuccess) configured = true;
+  return e;
 }
 
-// 1 if the packed factor of an N-row model does not fit shared memory and
-// the caller must pass a workspace of B·N(N+1)/2 floats.
-extern "C" int stationary_nll_needs_workspace(int N) {
-  return smem_bytes(N, true) > (size_t)smem_optin() ? 1 : 0;
+// A shape of the cluster kernel: C CTAs a model, G warps at most a tile
+// column of W, the shared bytes a CTA (C = -1: it does not fit).
+struct ClusterShape {
+  int C, G;
+  size_t bytes;
+};
+
+// At T tiles and C ranks: G the most of 8, 4, 2 and 1 whose partial sums fit
+// beside the largest rank's tiles in a block's shared memory.
+static ClusterShape shape_at(int T, int C) {
+  const size_t most = (size_t)smem_optin();
+  auto bytes = [&](int G) { return (size_t)cluster_layout(T, C, G).total * sizeof(float); };
+  if (bytes(1) > most) return {-1, 1, 0};
+  int G = TILE_THREADS / 32;
+  while (G > 1 && bytes(G) > most) G /= 2;
+  return {C, G, bytes(G)};
+}
+
+// The launch of B clusters of the shape (attr: the cluster's dimension).
+static cudaLaunchConfig_t cluster_launch(int B, const ClusterShape& sh,
+                                         cudaLaunchAttribute* attr, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * sh.C, 1, 1);
+  cfg.blockDim = dim3(TILE_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = sh.bytes;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = sh.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The cluster kernel's shape at N: the smallest C of 2, 4 and 8 whose
+// largest rank's tiles fit (C = -1 where none does). It depends on N alone,
+// so that a model's rounding does not depend on the batch beside it.
+static ClusterShape cluster_shape(int N) {
+  const int T = (N + SP - 1) / SP;
+  ClusterShape sh = {-1, 1, 0};
+  for (int C = 2; C <= MAX_CLUSTER && sh.C < 0; C *= 2) sh = shape_at(T, C);
+  return sh;
 }
 
 template <bool WITH_W>
-static cudaError_t launch(const float* d2s, const float* err, const float* mask,
-                          const float* vs, const float* ss, const float* als,
-                          const float* noise, float* nll, float* a_out, float* W,
-                          float* workspace, int B, int N, const Atoms& atoms,
-                          cudaStream_t stream) {
-  const size_t bytes = smem_bytes(N, workspace == nullptr);
-  if (bytes > (size_t)smem_optin()) return cudaErrorInvalidValue;
-  if (bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(stationary_nll_kernel<WITH_W>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-    if (e != cudaSuccess) return e;
-  }
-  stationary_nll_kernel<WITH_W><<<B, THREADS, bytes, stream>>>(
-      d2s, err, mask, vs, ss, als, noise, nll, a_out, W, workspace, B, N, atoms);
-  return cudaGetLastError();
+static cudaError_t launch_cluster(const float* d2s, const float* err, const float* mask,
+                                  const float* vs, const float* ss, const float* als,
+                                  const float* noise, float* nll, float* a_out, float* W, int B,
+                                  int N, const Atoms& atoms, cudaStream_t stream) {
+  const ClusterShape sh = cluster_shape(N);
+  if (sh.C < 0) return cudaErrorInvalidValue;
+  cudaError_t e = configure_cluster<WITH_W>();
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_launch(B, sh, attr, stream);
+  e = cudaLaunchKernelEx(&cfg, stationary_nll_cluster_kernel<WITH_W>, d2s, err, mask, vs, ss,
+                         als, noise, nll, a_out, W, B, N, sh.C, sh.G, atoms);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-static long long g_launches[2];  // the tile kernel's, the column loop's
+static long long g_launches[2];  // the tile kernel's, the cluster kernel's
 
 // Plain C entry point: every pointer is a device pointer except `families`
-// and `dims` (host arrays of J ints). N <= 256 runs the tile kernel (the
-// workspace is not used), larger N the column loop. Returns the cudaError_t
-// of the launch.
+// and `dims` (host arrays of J ints). N <= 256 runs the tile kernel,
+// 256 < N <= 512 the cluster kernel; larger N is refused
+// (cudaErrorInvalidValue). Returns the cudaError_t of the launch.
 extern "C" int stationary_nll_launch(const float* d2s, const float* err,
                                      const float* mask, const float* vs,
                                      const float* ss, const float* als,
                                      const float* noise, float* nll, float* a_out,
-                                     float* W, float* workspace, int B, int N, int J,
+                                     float* W, int B, int N, int J,
                                      const int* families, const int* dims,
                                      int combine, void* stream) {
   if (B <= 0 || N <= 0) return (int)cudaSuccess;
-  if (J < 1 || J > MAX_ATOMS) return (int)cudaErrorInvalidValue;
+  if (N > MAX_N || J < 1 || J > MAX_ATOMS) return (int)cudaErrorInvalidValue;
   Atoms atoms;
   atoms.J = J;
   atoms.combine = combine;
@@ -554,16 +831,16 @@ extern "C" int stationary_nll_launch(const float* d2s, const float* err,
           : launch_tiles<false>(d2s, err, mask, vs, ss, als, noise, nll, a_out, W, B, N, atoms,
                                 s);
   else
-    e = W ? launch<true>(d2s, err, mask, vs, ss, als, noise, nll, a_out, W, workspace, B, N,
-                         atoms, s)
-          : launch<false>(d2s, err, mask, vs, ss, als, noise, nll, a_out, W, workspace, B, N,
-                          atoms, s);
+    e = W ? launch_cluster<true>(d2s, err, mask, vs, ss, als, noise, nll, a_out, W, B, N, atoms,
+                                 s)
+          : launch_cluster<false>(d2s, err, mask, vs, ss, als, noise, nll, a_out, W, B, N, atoms,
+                                  s);
   if (e == cudaSuccess) ++g_launches[tiled ? 0 : 1];
   return (int)e;
 }
 
 // Launches since the library was loaded: out[0] of the tile kernel, out[1]
-// of the column loop.
+// of the cluster kernel.
 extern "C" void stationary_nll_kernel_launches(long long* out) {
   out[0] = g_launches[0];
   out[1] = g_launches[1];
@@ -572,7 +849,7 @@ extern "C" void stationary_nll_kernel_launches(long long* out) {
 // CTAs of the kernel that runs at this N resident on one SM at once
 // (occupancy), or -1 on error.
 extern "C" int stationary_nll_ctas_per_sm(int N, int with_w) {
-  if (N <= 0) return -1;
+  if (N <= 0 || N > MAX_N) return -1;
   int n = -1;
   cudaError_t e;
   if (N <= MAX_TILE_N) {
@@ -584,20 +861,37 @@ extern "C" int stationary_nll_ctas_per_sm(int N, int with_w) {
                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                      &n, stationary_nll_tile_kernel<false>, TILE_THREADS, bytes);
   } else {
-    const size_t bytes = smem_bytes(N, !stationary_nll_needs_workspace(N));
-    if (with_w) {
-      e = cudaFuncSetAttribute(stationary_nll_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-      if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, stationary_nll_kernel<true>,
-                                                          THREADS, bytes);
-    } else {
-      e = cudaFuncSetAttribute(stationary_nll_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-      if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, stationary_nll_kernel<false>,
-                                                          THREADS, bytes);
-    }
+    const ClusterShape sh = cluster_shape(N);
+    if (sh.C < 0) return -1;
+    const size_t bytes = sh.bytes;
+    e = with_w ? configure_cluster<true>() : configure_cluster<false>();
+    if (e != cudaSuccess) return -1;
+    e = with_w ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &n, stationary_nll_cluster_kernel<true>, TILE_THREADS, bytes)
+               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &n, stationary_nll_cluster_kernel<false>, TILE_THREADS, bytes);
   }
   return e == cudaSuccess ? n : -1;
+}
+
+// The cluster kernel's shape at 256 < N <= 512: out[0] the cluster size C,
+// out[1] the warps a tile column of W (G), out[2] the shared bytes a CTA,
+// out[3] the clusters of that shape resident on the device at once
+// (cudaOccupancyMaxActiveClusters, for the variant with W). Returns
+// cudaErrorInvalidValue outside the window, else the query's error.
+extern "C" int stationary_nll_cluster_shape(int N, int* out) {
+  if (N <= MAX_TILE_N || N > MAX_N) return (int)cudaErrorInvalidValue;
+  const ClusterShape sh = cluster_shape(N);
+  if (sh.C < 0) return (int)cudaErrorInvalidValue;
+  cudaError_t e = configure_cluster<true>();
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_launch(1, sh, attr, 0);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, (const void*)stationary_nll_cluster_kernel<true>, &cfg);
+  out[0] = sh.C;
+  out[1] = sh.G;
+  out[2] = (int)sh.bytes;
+  out[3] = n;
+  return (int)e;
 }

@@ -55,18 +55,20 @@ def pallas_nll_supported(n: int) -> bool:
 
 # -- the dense tier ---------------------------------------------------------
 
-def _check_dense(K, y, noise):
+def _check_dense(K, y, noise, window=True):
+    """Operand shapes, and with `window` the dense tier's N ≤ MAX_PALLAS_N
+    (the plain column loop takes any N)."""
     if K.ndim != 3 or K.shape[1] != K.shape[2] or y.shape != K.shape[:2] \
             or noise.shape != K.shape[:1]:
         raise ValueError(f"dense NLL operands K {tuple(K.shape)}, y {tuple(y.shape)}, "
                          f"noise {tuple(noise.shape)} are not (B, N, N), (B, N), (B,)")
-    if K.shape[1] > MAX_PALLAS_N:
+    if window and K.shape[1] > MAX_PALLAS_N:
         raise ValueError(f"the dense NLL takes N ≤ {MAX_PALLAS_N}, got {K.shape[1]}")
 
 
 def _factor_solve_loop(K, y, noise, with_inverse):
-    """The column loop in torch: (a, Σ log diag L, W or None)."""
-    _check_dense(K, y, noise)
+    """The column loop in torch: (a, Σ log diag L, W or None), at any N."""
+    _check_dense(K, y, noise, window=False)
     B, N, _ = K.shape
     A = torch.tril(K) + torch.diag_embed(noise[:, None].expand(B, N))
     a = y.clone()
@@ -156,6 +158,7 @@ def factor_solve(K, y, noise, with_inverse):
     if K.device.type == "cuda":
         return factor_solve_cuda(K, y, noise, with_inverse)
     if K.device.type == "cpu":
+        _check_dense(K, y, noise)
         a, logdet, W = _factor_solve_loop(K, y, noise, with_inverse)
         nll = 0.5 * torch.sum(a * a, dim=-1) + logdet + 0.5 * K.shape[1] * LOG2PI
         return nll, a, logdet, W

@@ -23,8 +23,10 @@ one does (one gradient per iteration).
 for the masked sum/product path (`_stg_kernel`'s role) and
 "stationary_nll" for the single-family path (`_st_kernel`/`_st_inv_kernel`).
 The source holds two kernels, chosen by N: the tile kernel for N ≤ 256
-(`MAX_TILE_N`) and the column loop above it; `kernel_launches()` reads how
-often each was launched, as the C entry point counts them.
+(`MAX_TILE_N`) and the cluster kernel (a thread-block cluster of 2, 4 or 8
+CTAs per model) up to `MAX_FUSED_N`; larger N is refused.
+`kernel_launches()` reads how often each was launched, as the C entry point
+counts them.
 """
 
 from __future__ import annotations
@@ -42,11 +44,11 @@ SQRT5 = 2.23606797749979
 
 # Build-in-shared-memory routing window, kept equal to the JAX package's
 # fused window (stationary_nll.MAX_FUSED_N) so the router names the same
-# tiers. The column loop takes any N (see the source note).
+# tiers; the kernel's largest N (csrc/stationary_nll.cu: MAX_N).
 MAX_FUSED_N = 512
 
 # The tile kernel's largest N (csrc/stationary_nll.cu: MAX_TILE_N); the
-# column loop takes larger N.
+# cluster kernel takes larger N.
 MAX_TILE_N = 256
 
 FAMILIES = ("se", "matern12", "matern32", "matern52")
@@ -180,10 +182,10 @@ def _lib():
         lib = cuda_build.load("stationary_nll")
         lib.stationary_nll_launch.restype = ctypes.c_int
         lib.stationary_nll_launch.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
             + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-        lib.stationary_nll_needs_workspace.restype = ctypes.c_int
-        lib.stationary_nll_needs_workspace.argtypes = [ctypes.c_int]
+        lib.stationary_nll_cluster_shape.restype = ctypes.c_int
+        lib.stationary_nll_cluster_shape.argtypes = [ctypes.c_int, ctypes.c_void_p]
         lib.stationary_nll_kernel_launches.restype = None
         lib.stationary_nll_kernel_launches.argtypes = [ctypes.c_void_p]
         lib.stationary_nll_ctas_per_sm.restype = ctypes.c_int
@@ -193,12 +195,12 @@ def _lib():
 
 
 def kernel_launches() -> dict:
-    """{"tile": n, "column": n}: launches of the tile kernel (N ≤ 256) and
-    of the column loop since the library was loaded, counted by the C entry
-    point where it launches each. Loads (and builds) the library."""
+    """{"tile": n, "cluster": n}: launches of the tile kernel (N ≤ 256) and
+    of the cluster kernel since the library was loaded, counted by the C
+    entry point where it launches each. Loads (and builds) the library."""
     out = (ctypes.c_longlong * 2)()
     _lib().stationary_nll_kernel_launches(out)
-    return {"tile": out[0], "column": out[1]}
+    return {"tile": out[0], "cluster": out[1]}
 
 
 def ctas_per_sm(n: int, with_inverse: bool) -> int:
@@ -206,9 +208,25 @@ def ctas_per_sm(n: int, with_inverse: bool) -> int:
     return _lib().stationary_nll_ctas_per_sm(n, 1 if with_inverse else 0)
 
 
+def cluster_shape(n: int) -> dict:
+    """The cluster kernel at 256 < N ≤ 512: its cluster size C (the
+    smallest that fits; it depends on N alone), the warps G that share a
+    tile column of W, the shared bytes a CTA and the clusters of that shape
+    resident on the card at once."""
+    out = (ctypes.c_int * 4)()
+    rc = _lib().stationary_nll_cluster_shape(n, out)
+    if rc != 0:
+        raise RuntimeError(f"stationary_nll_cluster_shape({n}) failed: CUDA error {rc}")
+    return {"C": out[0], "G": out[1], "smem_bytes": out[2], "clusters": out[3]}
+
+
 def stationary_nll_forward_cuda(families, combine, dims, d2s, err, vs, ss, als,
                                 noise, mask, with_inverse, counter):
-    """Launch the CUDA kernel; same contract as the plain version."""
+    """Launch the CUDA kernel; same contract as the plain version. N past
+    MAX_FUSED_N raises ValueError before the library is loaded."""
+    if err.shape[-1] > MAX_FUSED_N:
+        raise ValueError(f"the stationary NLL kernel takes N <= MAX_FUSED_N = {MAX_FUSED_N}, "
+                         f"got N = {err.shape[-1]}")
     tensors = [d2s, err, vs, ss, als, noise] + ([] if mask is None else [mask])
     for t in tensors:
         if t.device.type != "cuda" or t.dtype != torch.float32:
@@ -230,15 +248,13 @@ def stationary_nll_forward_cuda(families, combine, dims, d2s, err, vs, ss, als,
     nll = torch.empty((B,), **opts)
     a = torch.empty((B, N), **opts)
     W = torch.empty((B, N, N), **opts) if with_inverse else None
-    work = (torch.empty((B, N * (N + 1) // 2), **opts)
-            if lib.stationary_nll_needs_workspace(N) else None)
     fam = (ctypes.c_int * J)(*[_FAMILY_CODE[f] for f in families])
     dim = (ctypes.c_int * J)(*dims)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.stationary_nll_launch(
             _ptr(d2s), _ptr(err), _ptr(mask), _ptr(vs), _ptr(ss), _ptr(als),
-            _ptr(noise), _ptr(nll), _ptr(a), _ptr(W), _ptr(work), B, N, J,
+            _ptr(noise), _ptr(nll), _ptr(a), _ptr(W), B, N, J,
             fam, dim, 1 if combine == "prod" else 0, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"stationary_nll kernel launch failed: CUDA error {rc}")

@@ -45,7 +45,7 @@ def _operands(cuda, families, dims, B, N, seed):
 @pytest.mark.parametrize("families,dims,N", [
     (("matern12", "matern12"), (1, 1), 77),
     (("se", "rq"), (3, 1), 130),
-    (("matern32",), (1,), 400),  # the packed factor exceeds shared memory: workspace path
+    (("matern32",), (1,), 400),  # the cluster kernel, C = 4
 ])
 def test_torch_cuda_general_kernel_matches_plain(cuda, combine, families, dims, N):
     d2s, err, vs, ls, als, noise, mask = _operands(cuda, families, dims, 6, N, 0)
@@ -87,20 +87,22 @@ def test_torch_cuda_kernel_indefinite_gives_nan(cuda):
 
 
 @pytest.mark.parametrize("kind", ["unmasked", "masked", "indefinite"])
-@pytest.mark.parametrize("N", [1, 31, 32, 33, 64, 65, 255, 256, 300, 400])
+@pytest.mark.parametrize("N", [1, 31, 32, 33, 64, 65, 255, 256, 288, 289, 300, 400, 448, 512])
 def test_torch_cuda_stationary_kernel_tile_edges(cuda, N, kind):
     """The stationary kernel, with and without W, at the tile kernel's edges
-    and past them (N = 300: the column loop; N = 400: its workspace)
-    against the plain version at phase 2b's tolerances
-    (chip_smoke.check_stationary): unmasked; masked, the last model keeping
-    N // 8 rows (every tile past its first empty from N = 64); and with an
-    indefinite last model, NaN where the plain version has it. Each launch
-    runs the kernel its N routes to (the tile kernel up to 256)."""
+    and past them on the cluster kernel (clusters of 2, 4 or 8 by N; 288 and
+    289 either side of T = 9 .. 10) against the plain version at phase 2b's
+    tolerances (chip_smoke.check_stationary): unmasked; masked, the last
+    model keeping N // 8 rows (every tile past its first empty from N = 64,
+    and every row of whole ranks at 257 .. 263 and from 353 on); and with an indefinite last
+    model, NaN where the plain version has it and W's and a's NaN pattern
+    the plain column loop's. Each launch runs the kernel its N routes to
+    (the tile kernel up to 256)."""
     import chip_smoke as cs
 
-    cases = {"unmasked": (("se", "matern32"), "prod", (N, N, N)),
-             "masked": (("matern12", "matern12"), "prod", (N, (2 * N) // 3, N // 8)),
-             "indefinite": (("se", "linear"), "sum", (N, N, N))}
+    cases = {"unmasked": (("se", "matern32"), "prod", cs.edge_keeps(N, 3, False)),
+             "masked": (("matern12", "matern12"), "prod", cs.edge_keeps(N, 3, True)),
+             "indefinite": (("se", "linear"), "sum", cs.edge_keeps(N, 3, False))}
     families, combine, keeps = cases[kind]
     err = cs.check_stationary(f"stationary {kind} N={N}", families, (1, 1), combine, N, keeps,
                               600 + N, indefinite=kind == "indefinite")
@@ -131,7 +133,7 @@ def test_torch_cuda_stationary_tile_kernel_families(cuda, family, combine):
     cs.check_general(f"tile {family} {combine} se", (family, "se"), (1, 1), combine, 6, 100,
                      True, 800 + st.GENERAL_FAMILIES.index(family))
     after = st.kernel_launches()
-    assert after["tile"] > before["tile"] and after["column"] == before["column"]
+    assert after["tile"] > before["tile"] and after["cluster"] == before["cluster"]
 
 
 @pytest.mark.parametrize("dims,N", [((4, 1), 96), ((3, 2), 256)])
@@ -145,11 +147,13 @@ def test_torch_cuda_stationary_tile_kernel_ard(cuda, dims, N):
 
 
 @pytest.mark.parametrize("N,route", [(40, "tile"), (175, "tile"), (256, "tile"),
-                                     (257, "column"), (262, "column")])
+                                     (257, "cluster"), (262, "cluster"), (353, "cluster"),
+                                     (480, "cluster"), (512, "cluster")])
 def test_torch_cuda_stationary_kernel_routes_by_n(cuda, N, route):
     """batched_nll_stationary's value and value+grad launch the tile kernel at
-    N <= 256 (the weekly and monthly menus, the headline) and the column loop
-    above (frontier grid A's 262), once each, as the C entry point counts."""
+    N <= 256 (the weekly and monthly menus, the headline) and the cluster
+    kernel above (frontier grid A's 262, up to the window's 512 at every
+    cluster size), once each, as the C entry point counts."""
     d2s, err, vs, ls, _, noise, _ = _operands(cuda, ("se",), (1,), 2, N, 3)
     before = st.kernel_launches()
     with torch.no_grad():
@@ -158,8 +162,88 @@ def test_torch_cuda_stationary_kernel_routes_by_n(cuda, N, route):
     torch.autograd.grad(nll.sum(), [vs[0]])
     torch.cuda.synchronize()
     after = st.kernel_launches()
-    other = "column" if route == "tile" else "tile"
+    other = "cluster" if route == "tile" else "tile"
     assert after[route] == before[route] + 2 and after[other] == before[other]
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("N", [257, 288, 289, 352, 353, 448, 449, 512])
+def test_torch_cuda_stationary_cluster_kernel_gradients(cuda, N, masked):
+    """Values and gradients of every operand through the cluster kernel
+    against the plain version, both sides of each step of the tile count's
+    and the cluster size's (chip_smoke.check_general: values rtol 3e-3,
+    gradients normalized atol 2e-2); only the cluster counter moves."""
+    import chip_smoke as cs
+
+    before = st.kernel_launches()
+    cs.check_general(f"cluster N={N}", ("matern12", "matern12"), (1, 1), "prod", 3, N, masked,
+                     1000 + N)
+    after = st.kernel_launches()
+    assert after["cluster"] > before["cluster"] and after["tile"] == before["tile"]
+
+
+@pytest.mark.parametrize("combine", ["prod", "sum"])
+@pytest.mark.parametrize("family", st.GENERAL_FAMILIES)
+def test_torch_cuda_stationary_cluster_kernel_families(cuda, family, combine):
+    """Each of the 7 families beside an SE atom, summed and multiplied,
+    masked, at N = 300 on the cluster kernel: values and gradients against
+    the plain version (chip_smoke.check_general)."""
+    import chip_smoke as cs
+
+    before = st.kernel_launches()
+    cs.check_general(f"cluster {family} {combine} se", (family, "se"), (1, 1), combine, 4, 300,
+                     True, 1600 + st.GENERAL_FAMILIES.index(family))
+    after = st.kernel_launches()
+    assert after["cluster"] > before["cluster"] and after["tile"] == before["tile"]
+
+
+def test_torch_cuda_stationary_cluster_kernel_ard_nuts_shape(cuda):
+    """The NUTS posterior's shape, B = 8 chains of an ARD SE kernel over
+    D = 4 at N = 512 (C = 8): values and gradients against the plain
+    version."""
+    import chip_smoke as cs
+
+    cs.check_general("cluster ARD se D=4 (8, 512)", ("se",), (4,), "prod", 8, 512, False, 1700)
+
+
+@pytest.mark.parametrize("N,C", [(257, 2), (262, 2), (352, 2), (353, 4), (448, 4), (449, 8),
+                                 (480, 8), (512, 8)])
+def test_torch_cuda_stationary_cluster_sizes(cuda, N, C):
+    """The cluster size the entry point picks at N (the smallest of 2, 4
+    and 8 that fits, whatever B) and, at that size, both variants against
+    the plain version, masked and with an indefinite last model
+    (chip_smoke.check_stationary), at B = 3 and at frontier grid A's 20."""
+    import chip_smoke as cs
+
+    assert st.cluster_shape(N)["C"] == C
+    for B in (3, 20):
+        cs.check_stationary(f"C={C} masked N={N} B={B}", ("matern12", "matern12"), (1, 1),
+                            "prod", N, cs.edge_keeps(N, B, True), 1800 + N)
+        cs.check_stationary(f"C={C} indefinite N={N} B={B}", ("se", "linear"), (1, 1), "sum", N,
+                            cs.edge_keeps(N, B, False), 1900 + N, indefinite=True)
+
+
+@pytest.mark.parametrize("N", [262, 400, 480])
+def test_torch_cuda_stationary_cluster_kernel_independent_of_batch(cuda, N):
+    """One model's NLL, a and W from the cluster kernel are bitwise the
+    same alone and as the first of a batch of 3, 20 or 40 (masked Matern12
+    x Matern12, with W): the kernel's arithmetic depends on N alone."""
+    families = ("matern12", "matern12")
+    d2s, err, vs, ls, als, noise, mask = _operands(cuda, families, (1, 1), 40, N, 2000 + N)
+    outs = []
+    with torch.no_grad():
+        D2, V, S, A = (torch.stack(d2s), torch.stack(vs), 1.0 / torch.stack(ls) ** 2,
+                       torch.stack(als))
+        for B in (1, 3, 20, 40):
+            got = st.stationary_nll_forward_cuda(
+                families, "prod", (1, 1), D2, err[:B].contiguous(), V[:, :B].contiguous(),
+                S[:, :B].contiguous(), A[:, :B].contiguous(), noise[:B].contiguous(),
+                mask[:B].contiguous(), True, "stationary_nll_general")
+            outs.append([g[:1] for g in got])
+    torch.cuda.synchronize()
+    for got in outs[1:]:
+        for g, alone in zip(got, outs[0]):
+            assert torch.equal(g, alone)
 
 
 # -- the blocked tier's panel kernel (csrc/blocked_panel.cu) ----------------

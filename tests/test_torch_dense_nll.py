@@ -81,12 +81,15 @@ def test_torch_dense_nll_float64_matches_jax_xla():
         rtol=1e-8)
 
 
-def test_torch_dense_factor_inverse_and_log_det():
-    """W·L = I and Σ log diag L of the plain column loop, float64."""
-    K, y, noise = (torch.tensor(x) for x in _operands(3, 40, 1, np.float64))
+@pytest.mark.parametrize("N", [40, 300])
+def test_torch_dense_factor_inverse_and_log_det(N):
+    """W·L = I and Σ log diag L of the plain column loop, float64, inside the
+    dense tier's window and past it (N = 300: the loop takes any N; it is
+    the NaN-pattern reference of the stationary cluster kernel's checks)."""
+    K, y, noise = (torch.tensor(x) for x in _operands(3, N, 1, np.float64))
     a, logdet, W = tnll.factor_solve_inv_plain(K, y, noise)
-    L = torch.linalg.cholesky(K + torch.diag_embed(noise[:, None].expand(3, 40)))
-    torch.testing.assert_close(W @ L, torch.eye(40, dtype=torch.float64).expand(3, 40, 40),
+    L = torch.linalg.cholesky(K + torch.diag_embed(noise[:, None].expand(3, N)))
+    torch.testing.assert_close(W @ L, torch.eye(N, dtype=torch.float64).expand(3, N, N),
                                rtol=0, atol=1e-12)
     torch.testing.assert_close(logdet, torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1))
     torch.testing.assert_close(a, torch.linalg.solve_triangular(L, y[..., None],

@@ -135,6 +135,84 @@ def test_torch_indefinite_factor_gives_nan():
     assert torch.all(torch.isnan(nll))
 
 
+@pytest.mark.parametrize("case", ["se", "matern12*matern12 masked"])
+def test_torch_fused_plain_above_256_matches_jax_xla(case):
+    """The port's fused tiers above N = 256 on CPU tensors, the plain forward
+    and the closed-form backward (the CPU route of every fused caller there:
+    frontier grid A, a walk-forward on a long window, the NUTS posterior),
+    against the JAX package's XLA path (its router with the fused tier off,
+    fast=False) in float64 at B = 2, N = 300: values rtol 1e-9, gradients of
+    every raw leaf normalized by max(|ref|, 1) atol 1e-8. Masked, model b
+    keeps its first keep[b] rows: the reference is the XLA NLL of those rows
+    plus ½ (N − keep[b]) log 2π (the fused tiers carry 2π at the full N).
+    The two sides build the squared distances in other orders (the fused
+    spec at unit lengthscale, XLA on X / ℓ), a difference far below 1e-9."""
+    B, N = 2, 300
+    rng = np.random.default_rng(7)
+    if case == "se":
+        X = np.sort(rng.uniform(0, 30, (N, 1)), axis=0)
+        keep = (N, N)
+
+        def build(k, o, v):
+            return k.SquaredExponential.create(v, 3.0, **o)
+    else:  # the walk-forward's composite: a covariate column, then time
+        X = np.column_stack([rng.normal(size=N), np.sort(rng.uniform(0, 30, N))])
+        keep = (N, 230)
+
+        def build(k, o, v):
+            return (k.Matern12.create(v, 1.5, active_dims=slice(0, 1), **o)
+                    * k.Matern12.create(1.0, 6.0, active_dims=slice(1, 2), **o))
+    Y = rng.normal(size=(N, 1))
+    jm = _stack([jgpr.GPR.create(build(jk, {}, v), noise_variance=nz)
+                 for v, nz in ((0.7, 0.1), (1.4, 0.25))], jnp.float64)
+    jX, jY = jnp.asarray(X), jnp.asarray(Y)
+
+    def jnll(m):
+        if keep == (N, N):
+            return jgpr.batched_neg_log_marginal_likelihood(m, jX, jY, fast=False)
+        return jnp.stack([
+            jgpr.neg_log_marginal_likelihood(jax.tree.map(lambda x: x[b], m), jX[:n], jY[:n])
+            + 0.5 * (N - n) * tst.LOG2PI for b, n in enumerate(keep)])
+
+    jval = jnll(jm)
+    jgrad = jax.tree.leaves(jax.grad(lambda m: jnp.sum(jnll(m)))(jm))
+
+    o = dict(device="cpu", dtype=torch.float64)
+    tm = tparams.from_jax_leaves(tgpr.GPR.create(build(tk, o, 1.0)),
+                                 [np.asarray(x) for x in jax.tree.leaves(jm)])
+    tm = tparams.tree_map(lambda x: x.requires_grad_(True), tm)
+    tX, tY = torch.as_tensor(X), torch.as_tensor(Y)
+    spec = tgpr.fused_stationary_spec(tm, tX)
+    err = tgpr._err(tm, tX, tY)[:, :, 0]
+    noise = tm.likelihood.variance
+    if case == "se":
+        assert spec.families == ("se",) and spec.dims == (1,)
+        tval = tst.batched_nll_stationary(spec.d2s[0], err, spec.vs[0], spec.ls[0], noise, "se")
+    else:
+        assert spec.families == ("matern12", "matern12") and spec.combine == "prod"
+        mask = (torch.arange(N)[None, :] < torch.tensor(keep)[:, None]).double()
+        tval = tst.batched_nll_stationary_general(spec.families, spec.d2s, err * mask, spec.vs,
+                                                  spec.ls, spec.als, noise, mask, dims=spec.dims)
+    tval.sum().backward()
+    np.testing.assert_allclose(tval.detach().numpy(), np.asarray(jval), rtol=1e-9)
+    _assert_grads([x.grad.numpy() for x in tparams.tree_leaves(tm)], jgrad)
+
+
+def test_torch_stationary_kernel_wrapper_raises_past_window(monkeypatch):
+    """The kernel's wrapper refuses N = 513, one past MAX_FUSED_N, with a
+    ValueError naming the window, before it loads (and builds) the library:
+    the source has no kernel past 512."""
+    def no_library():
+        raise AssertionError("the library was loaded")
+
+    monkeypatch.setattr(tst, "_lib", no_library)
+    B, N = 2, tst.MAX_FUSED_N + 1
+    z = torch.zeros
+    with pytest.raises(ValueError, match="MAX_FUSED_N"):
+        tst.stationary_nll_forward_cuda(("se",), "prod", (1,), z(1, N, N), z(B, N), z(1, B),
+                                        z(1, B), z(1, B), z(B), None, False, "stationary_nll")
+
+
 # -- the router ---------------------------------------------------------------
 
 def _tier_cases():

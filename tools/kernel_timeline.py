@@ -1,13 +1,14 @@
-"""Where the time goes inside the panel-factor, triangular-inverse and dense
-NLL kernels.
+"""Where the time goes inside the panel-factor, triangular-inverse, dense NLL
+and stationary NLL kernels.
 
 Builds a copy of `csrc/blocked_panel.cu`, `csrc/trinv.cu`,
 `csrc/dense_nll.cu` and `csrc/stationary_nll.cu`, and of the headers they
 include, with clock64() marks inserted at the boundaries of their phases
 (the copies go to build/timeline/<source>/; the sources are not touched),
 launches each at its main
-path's shape, and prints, for CTA 0, the SM cycles from the CTA's start to
-each mark, per warp:
+path's shape, and prints, for CTA 0 (and for the stationary cluster kernel
+also the last CTA of cluster 0), the SM cycles from the CTA's start to each
+mark, per warp:
 
 - panel (nt = 875, B = 1): `issued` (every cp.async of the staging issued),
   `staged` (the first sub-panel's columns landed), then for each sub-panel
@@ -25,7 +26,19 @@ each mark, per warp:
   Matern12 × Matern12, and the headline's (128, 256), SE, value only and
   with W: `built` (the warp's entries of K written), then `a<k>`, `b<k>`,
   `c<k>` and `W<J>` as in the dense kernel (the tile core, in
-  csrc/nll_tile.cuh, is the same), and `end`.
+  csrc/nll_tile.cuh, is the same), and `end`;
+- the stationary NLL's cluster kernel at frontier grid A's (20, 262), SE,
+  and the NUTS posterior's (8, 512), ARD SE over D = 4, value only and with
+  W: `built` (the warp's entries of K written), `go` (every rank's built:
+  the first cluster barrier passed), then for each sub-panel k `a<k>` (the
+  diagonal factor and its transpose written to every rank: the owner's
+  warp 0), `s<k>` (the warp's row solves), `b<k>` (their rows written to
+  every rank's panel through the cluster's shared memory), `c<k>` (the
+  warp's trailing updates, local memory only), each taken before the
+  barrier that ends its phase (so the gap to the next phase's first mark
+  is the barrier's wait), then for each row block J of W `W<J>` (the row
+  block's tiles copied from their owner and the warp's columns computed),
+  and `end` (rank 0's NLL written).
 
 Run on a machine with an NVIDIA GPU and nvcc, from the repository root:
 
@@ -51,17 +64,20 @@ sys.path.insert(0, REPO)
 from portfoliooptgp_tpu_torch.ops import cuda_build  # noqa: E402
 from portfoliooptgp_tpu_torch.ops import stationary_nll as st  # noqa: E402
 
-SLOTS = 64  # marks per warp
+SLOTS = 128  # marks per warp
 MARKS = f'''
-__device__ long long g_clk[32 * {SLOTS}];
-#define CLK(n) if ((threadIdx.x & 31) == 0 && blockIdx.x == 0 && blockIdx.y == 0) \\
-    g_clk[(threadIdx.x >> 5) * {SLOTS} + (n)] = clock64();
+__device__ long long g_clk[2 * 32 * {SLOTS}];
+__device__ int g_last_cta;  // the second CTA marked (0: CTA 0 alone)
+#define CLK(n) if ((threadIdx.x & 31) == 0 && blockIdx.y == 0 && \\
+                   (blockIdx.x == 0 || (int)blockIdx.x == g_last_cta)) \\
+    g_clk[((blockIdx.x != 0) * 32 + (threadIdx.x >> 5)) * {SLOTS} + (n)] = clock64();
 extern "C" int read_clk(long long* host) {{
   return (int)cudaMemcpyFromSymbol(host, g_clk, sizeof(g_clk));
 }}
-extern "C" int clear_clk(void) {{
-  static const long long zeros[32 * {SLOTS}] = {{}};
-  return (int)cudaMemcpyToSymbol(g_clk, zeros, sizeof(g_clk));
+extern "C" int clear_clk(int last_cta) {{
+  static const long long zeros[2 * 32 * {SLOTS}] = {{}};
+  int e = (int)cudaMemcpyToSymbol(g_clk, zeros, sizeof(g_clk));
+  return e ? e : (int)cudaMemcpyToSymbol(g_last_cta, &last_cta, sizeof(int));
 }}
 '''
 START = 63  # the mark taken as the CTA starts
@@ -108,8 +124,8 @@ DENSE = [
 STATIONARY = [
     ('#include "nll_tile.cuh"\n', MARKS, False),  # CLK is defined before the header
     ("  float* prm = lt + MAX_TILE_N;", "\n  CLK(63);", True),
-    ("  build_tiles(tiles, d2s, mk, prm, noise[b], N, T, atoms.J, atoms.combine);\n",
-     "  CLK(62);\n", True),
+    ("  build_tiles(tiles, d2s, mk, prm, noise[b], N, 0, 1, T * (T + 1) / 2, atoms.J, "
+     "atoms.combine);\n", "  CLK(62);\n", True),
     ("    if (warp == 0) factor_step(tiles, Lt(k), dg, yd, lt, k, N, ld);  // (a)\n",
      "    CLK(3 * k);\n", True),
     ("    __syncthreads();\n\n    // (c): two units", "    CLK(3 * k + 1);\n", False),
@@ -118,12 +134,27 @@ STATIONARY = [
      "    CLK(24 + J);\n", False),
     ("}\n\ntemplate <bool WITH_W>\nstatic cudaError_t configure_tiles()", "  CLK(60);\n",
      False),
+    # the cluster kernel
+    ("  auto at = [&](float* p, int q) { return cluster.map_shared_rank(p, (unsigned)q); };\n",
+     "  CLK(63);\n", True),
+    ("  cluster.sync();  // every rank has started and built its tiles\n", "  CLK(62);\n", False),
+    ("  cluster.sync();  // every rank has started and built its tiles\n", "  CLK(61);\n", True),
+    ("      if (lane == 0) at(lds, 0)[k] = s;\n    }\n", "    CLK(64 + 4 * k);\n", True),
+    ("      for (int q = 0; q < C; ++q) {\n        if (!e)", "      CLK(64 + 4 * k + 1);\n", False),
+    ("    cluster.sync();\n\n    // (c): two units a pair", "    CLK(64 + 4 * k + 2);\n", False),
+    ("    // the next diagonal tile's owner factors it", "    CLK(64 + 4 * k + 3);\n", False),
+    ("      __syncthreads();  // the panel, ltc and part are read before the next row block's",
+     "      CLK(J);\n", False),
+    ("}\n\nstatic int smem_optin()", "  CLK(60);\n", False),
 ]
 
 DENSE_LABELS = {62: "staged", 60: "end",
                 **{3 * k + i: f"{'abc'[i]}{k}" for k in range(8) for i in range(3)},
                 **{24 + J: f"W{J}" for J in range(8)}}
 STATIONARY_LABELS = {**DENSE_LABELS, 62: "built"}
+CLUSTER_LABELS = {63: "start", 62: "built", 61: "go", 60: "end",
+                  **{64 + 4 * k + i: f"{'asbc'[i]}{k}" for k in range(16) for i in range(4)},
+                  **{J: f"W{J}" for J in range(16)}}
 
 
 def instrumented(name, edits):
@@ -151,14 +182,15 @@ def instrumented(name, edits):
     return ctypes.CDLL(out)
 
 
-def show(lib, title, labels, nwarps):
-    buf = (ctypes.c_longlong * (32 * SLOTS))()
+def show(lib, title, labels, nwarps, cta=0):
+    """Print the marks of CTA 0 (cta 0) or of the second CTA marked (cta 1)."""
+    buf = (ctypes.c_longlong * (2 * 32 * SLOTS))()
     torch.cuda.synchronize()
     if lib.read_clk(buf) != 0:
         raise SystemExit("reading the marks failed")
     print(title, flush=True)
     for w in range(nwarps):
-        row = [buf[w * SLOTS + n] for n in range(SLOTS)]
+        row = [buf[(cta * 32 + w) * SLOTS + n] for n in range(SLOTS)]
         marks = sorted((row[n] - row[START], labels[n]) for n in labels if row[n])
         print(f"  warp {w}: " + " ".join(f"{lab}={t}" for t, lab in marks), flush=True)
 
@@ -217,7 +249,7 @@ def main() -> int:
                 torch.empty(B, N, device="cuda")]
         W = torch.empty(B, N, N, device="cuda")
         for with_w in (False, True):
-            if dense.clear_clk() != 0:
+            if dense.clear_clk(0) != 0:
                 raise SystemExit("clearing the marks failed")
             for _ in range(3):
                 rc = dense.dense_nll_launch(K.data_ptr(), K.stride(0), K.stride(1), K.stride(2),
@@ -231,37 +263,55 @@ def main() -> int:
 
     stationary = instrumented("stationary_nll", STATIONARY)
     stationary.stationary_nll_launch.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
         + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-    for families, B, N, masked in ((("matern12", "matern12"), 5, 77, True),
-                                   (("se",), 128, 256, False)):
-        J = len(families)
+    stationary.stationary_nll_cluster_shape.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    # (families, dims, B, N, masked): the tile kernel's two shapes, then the cluster kernel's
+    for families, dims, B, N, masked in ((("matern12", "matern12"), (1, 1), 5, 77, True),
+                                         (("se",), (1,), 128, 256, False),
+                                         (("se",), (1,), 20, 262, False),
+                                         (("se",), (4,), 8, 512, False)):
+        J, JD = len(families), sum(dims)
         x = torch.sort(30 * torch.rand(N, device="cuda", generator=rng)).values
-        d2s = ((x[:, None] - x[None, :]) ** 2).expand(J, N, N).contiguous()
+        d2s = ((x[:, None] - x[None, :]) ** 2).expand(JD, N, N).contiguous()
         keep = N - torch.arange(B, device="cuda") * N // (4 * B)
         mask = (torch.arange(N, device="cuda")[None, :] < keep[:, None]).float()
         err = torch.randn(B, N, device="cuda", generator=rng) * mask
-        vs, ss, als = torch.ones(J, B, device="cuda"), torch.full((J, B), 0.04, device="cuda"), \
+        vs, ss, als = torch.ones(J, B, device="cuda"), torch.full((JD, B), 0.04 / JD,
+                                                                  device="cuda"), \
             torch.ones(J, B, device="cuda")
         noise = torch.full((B,), 0.1, device="cuda")
         nll_out, a = torch.empty(B, device="cuda"), torch.empty(B, N, device="cuda")
         W = torch.empty(B, N, N, device="cuda")
         codes = (ctypes.c_int * J)(*[st.GENERAL_FAMILIES.index(f) for f in families])
-        dims = (ctypes.c_int * J)(*([1] * J))
+        dim = (ctypes.c_int * J)(*dims)
+        cluster = N > st.MAX_TILE_N
+        C = 1
+        if cluster:
+            shape = (ctypes.c_int * 4)()
+            if stationary.stationary_nll_cluster_shape(N, shape) != 0:
+                raise SystemExit("stationary_nll_cluster_shape failed")
+            C = shape[0]
         for with_w in (False, True):
-            if stationary.clear_clk() != 0:
+            if stationary.clear_clk(C - 1) != 0:
                 raise SystemExit("clearing the marks failed")
             for _ in range(3):
                 rc = stationary.stationary_nll_launch(
                     d2s.data_ptr(), err.data_ptr(), mask.data_ptr() if masked else None,
                     vs.data_ptr(), ss.data_ptr(), als.data_ptr(), noise.data_ptr(),
-                    nll_out.data_ptr(), a.data_ptr(), W.data_ptr() if with_w else None, None,
-                    B, N, J, codes, dims, 1, stream())
+                    nll_out.data_ptr(), a.data_ptr(), W.data_ptr() if with_w else None,
+                    B, N, J, codes, dim, 1, stream())
                 if rc != 0:
                     raise SystemExit(f"stationary launch failed: CUDA error {rc}")
-            show(stationary, f"stationary NLL tile kernel ({B}, {N}) {'*'.join(families)}"
-                 f"{' masked' if masked else ''} {'with W' if with_w else 'value only'}, CTA 0, "
-                 "SM cycles from its start:", STATIONARY_LABELS, 8)
+            what = (f"({B}, {N}) {'*'.join(families)}{f' dims {dims}' if JD > J else ''}"
+                    f"{' masked' if masked else ''} {'with W' if with_w else 'value only'}")
+            if not cluster:
+                show(stationary, f"stationary NLL tile kernel {what}, CTA 0, SM cycles from its "
+                     "start:", STATIONARY_LABELS, 8)
+                continue
+            for cta, name in ((0, "CTA 0 (rank 0)"), (1, f"CTA {C - 1} (rank {C - 1})")):
+                show(stationary, f"stationary NLL cluster kernel {what}, C = {C}, {name} of "
+                     "cluster 0, SM cycles from its start:", CLUSTER_LABELS, 8, cta)
     return 0
 
 

@@ -10,19 +10,24 @@ checkout's `portfoliooptgp_tpu_torch` first on the path, so its
 are taken by this checkout's `chip_smoke.stationary_times` at every shape of
 `chip_smoke.STATIONARY_TIMED` (the walk-forward's (5, 77) masked, the
 headline's (128, 256), the weekly and monthly menus' (1, 175) and (1, 40),
-frontier grid A's (20, 262)): the kernel with and without W, its plain
-version and the torch.linalg chain by CUDA-graph replay, the kernel and the
-chain eager, and the bound; and chip_smoke phase 3's headline value+grad
-through the router. Name the roots in turns (parent, change,
-change, parent) to compare two commits on one card. Prints one JSON line
-per ROOT, then the card's name and power limit.
+frontier grid A's (20, 262), the NUTS posterior's (8, 512) ARD and a
+two-year walk-forward's (5, 480) masked): the kernel with and without W,
+its plain version and the torch.linalg chain by CUDA-graph replay, the
+kernel and the chain eager, and the bound; chip_smoke phase 3's headline
+value+grad through the router; and the one-year frontier pipeline (grid A,
+N = 262) warm under the profiler: its wall and device seconds, the
+stationary kernel's seconds and launches. Name the roots in turns (parent,
+change, change, parent) to compare two commits on one card. Prints one JSON
+line per ROOT, then the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import importlib.util
+import json
 import os
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from dense_compare import HERE, run_in_turns  # noqa: E402
@@ -47,7 +52,30 @@ def times_of(root: str) -> dict:
     times = {label: cs.stationary_times(st, *shape)
              for label, shape in cs.STATIONARY_TIMED.items()}
     times["headline value+grad ms"] = headline_value_grad_ms(cs)
+    times["frontier 1y profiled"] = frontier_profile(cs, st, root)
     return times
+
+
+def frontier_profile(cs, st, root) -> dict:
+    """The one-year frontier pipeline (chip_smoke phase 8's grid A: the ICM
+    fit's NLL on the stationary kernel at B = 20, N = 262) with the package
+    first on the path: a cold run, then a warm run under the profiler
+    (`chip_smoke.device_busy`, which writes the device time by name to
+    frontier_1y_<root>.txt): wall, device and stationary-kernel seconds, and
+    the stationary kernel's launches in the warm run."""
+    with open(cs.frontier_goldens_path("1y")) as fh:
+        g = json.load(fh)
+    with open(cs.frontier_goldens_path("1y", True)) as fh:
+        g32 = json.load(fh)
+    with tempfile.TemporaryDirectory() as data:
+        cs.make_frontier_market(data, *cs.FRONTIER_GRIDS["1y"], seed=g["market_seed"])
+        cs.run_frontier(data, "1y", g, g32, "cuda", replay=False)
+        before = st.kernel_launches()
+        name = "frontier_1y_" + "".join(ch if ch.isalnum() else "_" for ch in root) + ".txt"
+        busy = cs.device_busy(lambda: cs.run_frontier(data, "1y", g, g32, "cuda", replay=False),
+                              name, kernel="stationary_nll")
+        after = st.kernel_launches()
+    return dict(busy, launches=sum(after.values()) - sum(before.values()))
 
 
 def headline_value_grad_ms(cs) -> dict:
