@@ -84,9 +84,10 @@ Phases, each fatal on failure:
      their plain versions in float32 for four families, isotropic and ARD,
      at (M, B) up to (128, 8192) on the 16k-day scale with a weight-0 tail,
      and `gaussian_elbo_gram_fused(use_pallas=True)`'s value and gradients
-     against `gaussian_elbo_gram` and against CPU copies; time each kernel
-     beside its plain version, the PyTorch chain and its bound
-     (`phase_svgp_checks`); then the sparse-variational workflow at
+     against `gaussian_elbo_gram` and against CPU copies; print each
+     kernel's launch shape and time it beside its plain version, the
+     PyTorch chain and its bound at (M, B, D) = (128, 2048, 1) and (128,
+     8192, 1) (`phase_svgp_checks`); then the sparse-variational workflow at
      full-AAPL scale (bench.py's SVGP problem, N = 10,963, M = 128, batch
      2048) on the card, cold then warm, by the trainer's default route and
      by the kernel route, against tests/goldens_torch/svgp_full_aapl*.json
@@ -872,11 +873,14 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, reps: int = 50, stream=None) -> float:
+def graph_ms(fn, reps: int = 50, stream=None, calls: int = 1) -> float:
     """Mean device time of fn()'s kernels in ms: fn is captured once in a
     CUDA graph on `stream` (a new side stream by default, after 3 warm-up
     calls there) and the graph replayed `reps` times between CUDA events.
-    No host work is timed: no allocation, argument check or launch call."""
+    No host work is timed: no allocation, argument check or launch call.
+    With `calls` > 1 the graph holds that many calls back to back and the
+    time is per call, less the replay's own launch latency (about 1 µs on
+    the H100: PERF.md, PR 13)."""
     side = stream if stream is not None else torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -885,7 +889,8 @@ def graph_ms(fn, reps: int = 50, stream=None) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
-        fn()
+        for _ in range(calls):
+            fn()
     graph.replay()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -894,7 +899,7 @@ def graph_ms(fn, reps: int = 50, stream=None) -> float:
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / (reps * calls)
 
 
 def nll_bound_ms(B, N, J, JD, masked, with_inverse):
@@ -2694,6 +2699,87 @@ def gram_bound_ms(M, B, D, backward):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+GRAM_TIMED = ((128, 2048, 1), (128, 8192, 1))  # the SVGP path's batch; the TPU kernel's largest
+GRAM_GRAPH_CALLS = 16  # kernel calls a CUDA graph holds for `ms16`
+
+
+def gram_geometry(sg, M, B, D):
+    """One line: the gram kernels' launch shape at (M, B, D) and how many of
+    its CTAs an SM holds at once."""
+    parts = []
+    for name, launch, bwd in zip(("forward", "backward"), sg.launch_shape(M, B, D),
+                                 (False, True)):
+        parts.append(f"{name} {launch.units} units × C = {launch.ranks}: "
+                     f"{launch.units * launch.ranks} CTAs, {launch.chunk} columns a rank"
+                     f"{f', {launch.kc} rows of Kuf a pass' if bwd else ''}, {launch.smem} B "
+                     f"of shared memory, {sg.blocks_per_sm(bwd, launch, D)} CTAs an SM at most")
+    return f"gram launch shape at (M, B, D) = ({M}, {B}, {D}): " + "; ".join(parts)
+
+
+def gram_times(sg, M, B, D):
+    """Times of module `sg`'s gram kernels (this checkout's or another's
+    `ops/svgp_gram.py`) at (M, B, D) on `gram_operands(seed=77)`, SE: each
+    kernel as the device time of a CUDA-graph replay (`graph_ms`: one call a
+    replay, `ms`, and GRAM_GRAPH_CALLS calls a replay, `ms16`), its eager
+    wrapper call (`cuda_ms`: allocation, checks and the ctypes launch
+    included), its plain version and the PyTorch chain (broadcast
+    differences, exp, torch.matmul; its autograd for the backward) by graph
+    replay, and the bound. Keys end in _fwd or _bwd."""
+    Z, X, y, w, t, v, s, Gbar, sqbar = gram_operands(M, B, D, seed=77)
+
+    def chain(Z, y, t, v, s):
+        diff = Z[:, None, :] - X[None, :, :]
+        K = v * torch.exp(-0.5 * torch.sum(diff * diff * s.reshape(-1), dim=-1))
+        e = y - t @ K
+        return (K * w) @ K.T, torch.sum(w * e * e)
+
+    def fwd():
+        return sg.gram_fwd_cuda(Z, X, y, w, t, v, s, "se")
+
+    def bwd():
+        return sg.gram_bwd_cuda(Z, X, y, w, t, v, s, "se", Gbar, sqbar)
+
+    leaves = [a.clone().requires_grad_(True) for a in (Z, y, t, v, s)]
+    side = torch.cuda.Stream()  # the chain's forward runs there, so its backward is captured
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = chain(*leaves)
+    times = {}
+    with torch.no_grad():
+        for tag, fn in (("fwd", fwd), ("bwd", bwd)):
+            times[f"ms_{tag}"] = graph_ms(fn)
+            times[f"ms16_{tag}"] = graph_ms(fn, calls=GRAM_GRAPH_CALLS)
+            times[f"eager_ms_{tag}"] = cuda_ms(fn)
+        times["plain_ms_fwd"] = graph_ms(lambda: sg.gram_fwd_plain(Z, X, y, w, t, v, s, "se"))
+        times["plain_ms_bwd"] = graph_ms(lambda: sg.gram_bwd_plain(Z, X, y, w, t, v, s, "se",
+                                                                   Gbar, sqbar))
+        times["library_ms_fwd"] = graph_ms(lambda: chain(Z, y, t, v, s))
+    times["library_ms_bwd"] = graph_ms(lambda: torch.autograd.grad(
+        out, leaves, (Gbar, sqbar), retain_graph=True), stream=side)
+    times["bound_fwd"] = gram_bound_ms(M, B, D, False)
+    times["bound_bwd"] = gram_bound_ms(M, B, D, True)
+    return times
+
+
+def report_gram_times(M, B, D, row):
+    print(f"phase 10 gram (M, B, D) = ({M}, {B}, {D}), device times of CUDA-graph replays "
+          f"(one call a replay; {GRAM_GRAPH_CALLS} calls a replay): forward kernel "
+          f"{row['ms_fwd']:.4f} ms; {row['ms16_fwd']:.4f} ms (eager wrapper call "
+          f"{row['eager_ms_fwd']:.4f} ms), plain {row['plain_ms_fwd']:.4f} ms, torch chain "
+          f"{row['library_ms_fwd']:.4f} ms, bound {row['bound_fwd'][0]:.6f} ms "
+          f"({row['bound_fwd'][1]}); backward kernel {row['ms_bwd']:.4f} ms; "
+          f"{row['ms16_bwd']:.4f} ms (eager wrapper call {row['eager_ms_bwd']:.4f} ms), plain "
+          f"{row['plain_ms_bwd']:.4f} ms, autograd {row['library_ms_bwd']:.4f} ms, bound "
+          f"{row['bound_bwd'][0]:.6f} ms ({row['bound_bwd'][1]})", flush=True)
+
+
+def gram_entry(row, tag):
+    """A gram kernel's timing keys of the `kernels` line from a gram_times row."""
+    return dict(ms=row[f"ms_{tag}"], ms16=row[f"ms16_{tag}"], plain_ms=row[f"plain_ms_{tag}"],
+                bound_ms=row[f"bound_{tag}"][0], bound_by=row[f"bound_{tag}"][1],
+                library_ms=row[f"library_ms_{tag}"], eager_ms=row[f"eager_ms_{tag}"])
+
+
 def _rel_err(got, want):
     got, want = got.detach().double().cpu(), want.detach().double().cpu()
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
@@ -2709,12 +2795,11 @@ def phase_svgp_checks():
     against `gaussian_elbo_gram` on the card and against the same call on
     CPU copies (phase 2's tolerances, tools/smoke_tpu.py's), on smoke_tpu's
     problem and on the benchmark's first batch at JAX float32's trained
-    leaves. (c) Times at (M, B, D) = (128, 2048, 1): each kernel, its plain
-    version and the PyTorch chain (broadcast differences, torch.matmul,
-    autograd) as the device time of a CUDA-graph replay (`graph_ms`, no host
-    work), each kernel's eager wrapper call as well (`cuda_ms`: allocation,
-    checks and the ctypes launch included), the bound, and one eager
-    value+grad of each route."""
+    leaves. (c) The launch shape at each of GRAM_TIMED, (128, 2048, 1) and
+    (128, 8192, 1) (`gram_geometry`), and the times there (`gram_times`:
+    each kernel, its plain version and the PyTorch chain by CUDA-graph
+    replay, the kernels eager as well, the bound); one eager value+grad of
+    each route at the path's batch."""
     from portfoliooptgp_tpu_torch import kernels as tk
     from portfoliooptgp_tpu_torch.models import svgp as svgp_mod
     from portfoliooptgp_tpu_torch.models.likelihoods import Gaussian
@@ -2794,60 +2879,26 @@ def phase_svgp_checks():
             print(f"check svgp use_pallas {name} vs {label}: value rel err {verr:.3e}, "
                   f"grad normalized err {gerr:.3e}", flush=True)
 
-    M, B, D = SVGP_M, SVGP_BATCH, 1
-    Z, X, y, w, t, v, s, Gbar, sqbar = gram_operands(M, B, D, seed=77)
-
-    def chain(Z, y, t, v, s):
-        diff = Z[:, None, :] - X[None, :, :]
-        K = v * torch.exp(-0.5 * torch.sum(diff * diff * s.reshape(-1), dim=-1))
-        e = y - t @ K
-        return (K * w) @ K.T, torch.sum(w * e * e)
-
-    def fwd():
-        return sg.gram_fwd_cuda(Z, X, y, w, t, v, s, "se")
-
-    def bwd():
-        return sg.gram_bwd_cuda(Z, X, y, w, t, v, s, "se", Gbar, sqbar)
-
-    leaves = [a.clone().requires_grad_(True) for a in (Z, y, t, v, s)]
-    side = torch.cuda.Stream()  # the chain's forward runs there, so its backward is captured
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        out = chain(*leaves)
-    times = {}
-    with torch.no_grad():
-        times["ms_fwd"] = graph_ms(fwd)
-        times["ms_bwd"] = graph_ms(bwd)
-        times["eager_ms_fwd"] = cuda_ms(fwd)
-        times["eager_ms_bwd"] = cuda_ms(bwd)
-        times["plain_ms_fwd"] = graph_ms(lambda: sg.gram_fwd_plain(Z, X, y, w, t, v, s, "se"))
-        times["plain_ms_bwd"] = graph_ms(lambda: sg.gram_bwd_plain(Z, X, y, w, t, v, s, "se",
-                                                                   Gbar, sqbar))
-        times["library_ms_fwd"] = graph_ms(lambda: chain(Z, y, t, v, s))
-    times["library_ms_bwd"] = graph_ms(lambda: torch.autograd.grad(
-        out, leaves, (Gbar, sqbar), retain_graph=True), stream=side)
-    times["bound_fwd"] = gram_bound_ms(M, B, D, False)
-    times["bound_bwd"] = gram_bound_ms(M, B, D, True)
+    for M, B, D in GRAM_TIMED:
+        print(gram_geometry(sg, M, B, D), flush=True)
+    times = {(M, B): gram_times(sg, M, B, D) for M, B, D in GRAM_TIMED}
+    for M, B, D in GRAM_TIMED:
+        report_gram_times(M, B, D, times[(M, B)])
     model = svgp_model(g32["leaves_final"])
+    B = SVGP_BATCH
     Xb, Yb = torch.tensor(Xn[:B], **o), torch.tensor(Yn[:B], **o)
+    value_grad = {}
     for route in SVGP_ROUTES:
-        def value_grad():
+        def value_grad_call():
             ls = [x.detach().requires_grad_(True) for x in tree_leaves(model)]
             val = svgp_mod.gaussian_elbo_gram_fused(tree_replace(model, ls), Xb, Yb,
                                                     num_data=SVGP_N, use_pallas=route == "kernel")
             return torch.autograd.grad(val, ls, allow_unused=True)
-        times[f"value_grad_ms_{route}"] = cuda_ms(value_grad)
-    print(f"phase 10 gram (M, B, D) = ({M}, {B}, {D}), device times of CUDA-graph replays: "
-          f"forward kernel {times['ms_fwd']:.4f} ms (eager wrapper call "
-          f"{times['eager_ms_fwd']:.4f} ms), plain {times['plain_ms_fwd']:.4f} ms, torch chain "
-          f"{times['library_ms_fwd']:.4f} ms, bound {times['bound_fwd'][0]:.6f} ms "
-          f"({times['bound_fwd'][1]}); backward kernel {times['ms_bwd']:.4f} ms (eager wrapper "
-          f"call {times['eager_ms_bwd']:.4f} ms), plain {times['plain_ms_bwd']:.4f} ms, autograd "
-          f"{times['library_ms_bwd']:.4f} ms, bound {times['bound_bwd'][0]:.6f} ms "
-          f"({times['bound_bwd'][1]}); value+grad of the ELBO (eager): route (i) torch "
-          f"{times['value_grad_ms_xla']:.4f} ms, route (ii) kernels "
-          f"{times['value_grad_ms_kernel']:.4f} ms", flush=True)
-    return dict(max_abs_err=worst, times=times)
+        value_grad[route] = cuda_ms(value_grad_call)
+    print(f"phase 10 value+grad of the ELBO at batch {B} (eager): route (i) torch "
+          f"{value_grad['xla']:.4f} ms, route (ii) kernels {value_grad['kernel']:.4f} ms",
+          flush=True)
+    return dict(max_abs_err=worst, times=times, value_grad_ms=value_grad)
 
 
 def _svgp_report(label, q):
@@ -3015,9 +3066,8 @@ def main() -> int:
             name=name, route="cuda", source="portfoliooptgp_tpu_torch/csrc/svgp_gram.cu",
             replaces=f"portfoliooptgp_tpu/ops/pallas/svgp_gram.py:{line}",
             launches=svgp["launches"][name], max_abs_err=gram["max_abs_err"][tag],
-            ms=tm[f"ms_{tag}"], plain_ms=tm[f"plain_ms_{tag}"], bound_ms=tm[f"bound_{tag}"][0],
-            bound_by=tm[f"bound_{tag}"][1], library_ms=tm[f"library_ms_{tag}"],
-            eager_ms=tm[f"eager_ms_{tag}"]))
+            **gram_entry(tm[(SVGP_M, SVGP_BATCH)], tag),
+            at_128x8192=gram_entry(tm[(128, 8192)], tag)))
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

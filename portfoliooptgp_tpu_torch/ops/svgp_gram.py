@@ -28,13 +28,16 @@ On CUDA tensors the two directions are the hand-written kernels of
 CPU tensors they are `gram_fwd_plain` and `gram_bwd_plain`, the same
 arithmetic in torch and the kernels' oracle. A CUDA tensor never takes a
 plain version: a failed build or launch raises. `LAUNCHES` counts kernel
-launches: "svgp_gram_fwd" and "svgp_gram_bwd" (one each per call, the
-two-pass reduction included).
+launches: "svgp_gram_fwd" and "svgp_gram_bwd" (one each per call; each
+direction is one launch, its reduction across CTAs inside). The grids come
+from `launch_shape(M, B, D)`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -44,10 +47,6 @@ LANES = 128  # the TPU kernel's lane budget for D, kept as the eligibility rule
 MAX_FUSED_B = 8192  # the TPU kernel's single-program budget, kept likewise
 FAMILIES = ("se", "matern12", "matern32", "matern52")
 _FAMILY_CODE = {f: i for i, f in enumerate(FAMILIES)}
-
-# Columns of X per CTA, and the shared-memory budget that caps them at large M.
-TILE_B = 64
-_SMEM_BUDGET = 200 * 1024
 
 LAUNCHES = {"svgp_gram_fwd": 0, "svgp_gram_bwd": 0}
 
@@ -118,6 +117,75 @@ def gram_bwd_plain(Z, X, y_eff, w, t, v, s, family, Gbar, sqbar):
 
 # -- the CUDA kernels ---------------------------------------------------------
 
+# The kernels' fixed shapes (csrc/svgp_gram.cu): columns of X per pass of a
+# CTA, G's blocks, the backward's rows per CTA, the most CTAs a unit splits
+# the batch over.
+STAGE = 128
+FWD_BLOCK = 32
+BWD_ROWS = 16
+MAX_RANKS = 16
+SMS = 132  # the H100's SMs: a grid aims at this many CTAs, one an SM
+MIN_CHUNK = 32  # columns of X a rank takes at least, below which C shrinks
+SMEM_LIMIT = 232_448  # shared memory a block may opt into on Hopper
+# The largest M the parent design took (its backward's two (M, 4) tiles
+# filled the shared memory above it); kept so that the kernels take the
+# same shapes as before.
+MAX_M = 5680
+
+
+class Launch(NamedTuple):
+    """One kernel's grid: `units` units of work of `ranks` CTAs each, rank
+    r taking columns r·chunk .. (r + 1)·chunk − 1 of X; `kc` rows of Kuf
+    per backward pass (0 in the forward); `smem` bytes of shared memory per
+    CTA."""
+    units: int
+    ranks: int
+    chunk: int
+    kc: int
+    smem: int
+
+
+def _fwd_smem(D):
+    return 4 * (2 * STAGE * FWD_BLOCK + FWD_BLOCK ** 2 + 2 * FWD_BLOCK * D + STAGE * D
+                + 2 * STAGE + D + 32 + 1)
+
+
+def _bwd_smem(D, kc):
+    return 4 * (kc * STAGE + kc * BWD_ROWS + D * kc + kc + D * STAGE + D * BWD_ROWS + BWD_ROWS
+                + BWD_ROWS * STAGE + 5 * STAGE + BWD_ROWS * D + 8 * D + 8 * BWD_ROWS
+                + BWD_ROWS + BWD_ROWS * D + D + 1 + D + 32 + 1)
+
+
+def _split(units, B):
+    """C ranks of `chunk` columns: as many as keep the grid within SMS CTAs
+    and each rank at MIN_CHUNK columns or more, at most MAX_RANKS."""
+    C = max(1, min(MAX_RANKS, SMS // units, -(-B // MIN_CHUNK)))
+    return C, -(-B // C)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_shape(M: int, B: int, D: int):
+    """(forward, backward) `Launch` of the gram kernels at (M, B, D), from
+    the shape alone, so that a given input always rounds the same way. The
+    forward's units are one for sq and the 32 × 32 blocks of G's lower
+    triangle, the backward's the 16-row blocks of Z; both split B into
+    their ranks' chunks. The C entry points check what they are given. Raises
+    ValueError where the kernels take no such shape (the parent's rule)."""
+    if M % 8 or M < 8:
+        raise ValueError("the fused gram path needs M % 8 == 0")
+    if not 1 <= D <= LANES:
+        raise ValueError(f"D={D} exceeds the fused lane budget {LANES}")
+    if M > MAX_M:
+        raise ValueError(f"M={M} inducing points exceed the gram kernels' largest M, {MAX_M}")
+    T = -(-M // FWD_BLOCK)
+    units = T * (T + 1) // 2 + 1
+    fwd = Launch(units, *_split(units, B), 0, _fwd_smem(D))
+    units = -(-M // BWD_ROWS)
+    kc = 128 if _bwd_smem(D, 128) <= SMEM_LIMIT else 64
+    bwd = Launch(units, *_split(units, B), kc, _bwd_smem(D, kc))
+    return fwd, bwd
+
+
 _LIB = None
 
 
@@ -129,23 +197,39 @@ def _lib():
         lib = cuda_build.load("svgp_gram")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.svgp_gram_fwd_launch.restype = i32
-        lib.svgp_gram_fwd_launch.argtypes = [ptr] * 7 + [ptr] * 4 + [i32] * 5 + [ptr]
+        lib.svgp_gram_fwd_launch.argtypes = ([ptr] * 7 + [i32] + [ptr] * 4 + [i32] * 7
+                                             + [ptr])
         lib.svgp_gram_bwd_launch.restype = i32
-        lib.svgp_gram_bwd_launch.argtypes = ([ptr] * 9 + [ptr] * 6 + [ptr] * 4
-                                             + [i32] * 5 + [ptr])
+        lib.svgp_gram_bwd_launch.argtypes = ([ptr] * 7 + [i32] + [ptr] * 9 + [i32] * 8
+                                             + [ptr])
+        lib.svgp_gram_blocks_per_sm.restype = i32
+        lib.svgp_gram_blocks_per_sm.argtypes = [i32] * 3 + [ptr]
         _LIB = lib
     return _LIB
 
 
-def tile_width(M: int) -> int:
-    """Columns per CTA: TILE_B, fewer where the backward's two (M, TILE_B)
-    tiles would pass the shared-memory budget (M above ~390); a multiple
-    of 4."""
-    bt = min(TILE_B, (_SMEM_BUDGET // 4 - M - 32) // (2 * M + 3))
-    bt -= bt % 4
-    if bt < 4:
-        raise ValueError(f"M={M} inducing points exceed the gram kernel's shared memory")
-    return bt
+def blocks_per_sm(backward: bool, launch: Launch, D: int) -> int:
+    """How many of `launch`'s CTAs (at D input dimensions) an SM holds at
+    once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    out = ctypes.c_int()
+    rc = _lib().svgp_gram_blocks_per_sm(int(backward), D, launch.smem, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"svgp_gram_blocks_per_sm failed: CUDA error {rc}")
+    return out.value
+
+
+# The arrival tickets of the kernels' last-CTA reductions: zeros, which every
+# launch leaves zero. One buffer per stream, since launches on one stream
+# never overlap.
+_TICKETS: dict = {}
+
+
+def _tickets(device, stream, n):
+    key = (device, stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _TICKETS[key] = torch.zeros((max(n, 1024),), dtype=torch.int32, device=device)
+    return buf
 
 
 def _cuda_operands(Z, X, y_eff, w, t, v, s, family):
@@ -155,7 +239,9 @@ def _cuda_operands(Z, X, y_eff, w, t, v, s, family):
             raise TypeError("the gram kernels take float32 CUDA tensors, got "
                             f"{a.dtype} on {a.device}")
     D = Z.shape[1]
-    return [a.contiguous() for a in (Z, X, y_eff, w, t, v.reshape(1), _scales(s, D))]
+    if v.numel() != 1 or s.numel() not in (1, D):
+        raise ValueError(f"v holds {v.numel()} values and s {s.numel()}; want 1 and 1 or {D}")
+    return [a.contiguous() for a in (Z, X, y_eff, w, t, v, s)]
 
 
 def _p(a):
@@ -163,21 +249,21 @@ def _p(a):
 
 
 def gram_fwd_cuda(Z, X, y_eff, w, t, v, s, family):
-    """Launch the forward kernel (tile pass + reduction): (G, sq)."""
+    """Launch the forward kernel (one launch, the reduction inside): (G, sq)."""
     ops = _cuda_operands(Z, X, y_eff, w, t, v, s, family)
     (M, D), B = Z.shape, X.shape[0]
-    bt = tile_width(M)
-    T = max(1, -(-B // bt))
+    fwd, _ = launch_shape(M, B, D)
     opts = dict(dtype=torch.float32, device=Z.device)
     G = torch.empty((M, M), **opts)
     sq = torch.empty((), **opts)
-    gpart = torch.empty((T, M, M), **opts)
-    sqpart = torch.empty((T,), **opts)
+    slots = fwd.units * fwd.ranks * FWD_BLOCK ** 2 if fwd.ranks > 1 else 1
+    scratch = torch.empty((slots,), **opts)  # the units' partials
     with torch.cuda.device(Z.device):
         stream = torch.cuda.current_stream(Z.device).cuda_stream
-        rc = _lib().svgp_gram_fwd_launch(*map(_p, ops), _p(G), _p(sq), _p(gpart), _p(sqpart),
-                                         M, B, D, bt, _FAMILY_CODE[family],
-                                         ctypes.c_void_p(stream))
+        rc = _lib().svgp_gram_fwd_launch(
+            *map(_p, ops), ops[6].numel(), _p(G), _p(sq), _p(scratch),
+            _p(_tickets(Z.device, stream, fwd.units)), M, B, D, _FAMILY_CODE[family],
+            fwd.ranks, fwd.chunk, fwd.smem, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"svgp_gram_fwd kernel launch failed: CUDA error {rc}")
     LAUNCHES["svgp_gram_fwd"] += 1
@@ -185,34 +271,34 @@ def gram_fwd_cuda(Z, X, y_eff, w, t, v, s, family):
 
 
 def gram_bwd_cuda(Z, X, y_eff, w, t, v, s, family, Gbar, sqbar):
-    """Launch the backward kernel (tile pass + reduction): (Z̄, ȳ, t̄, v̄, s̄
-    per dimension)."""
+    """Launch the backward kernel (one launch, the reduction inside): (Z̄,
+    ȳ, t̄, v̄, s̄ per dimension)."""
     ops = _cuda_operands(Z, X, y_eff, w, t, v, s, family)
     (M, D), B = Z.shape, X.shape[0]
     if Gbar.shape != (M, M) or Gbar.device != Z.device or sqbar.numel() != 1:
         raise ValueError(f"Ḡ {tuple(Gbar.shape)} / s̄q do not fit M={M}")
-    Gbar = Gbar.to(torch.float32).contiguous()
-    sqbar = sqbar.to(torch.float32).reshape(1).contiguous()
-    bt = tile_width(M)
-    T = max(1, -(-B // bt))
+    if Gbar.dtype != torch.float32:
+        Gbar = Gbar.to(torch.float32)
+    if sqbar.dtype != torch.float32:
+        sqbar = sqbar.to(torch.float32)
+    Gbar, sqbar = Gbar.contiguous(), sqbar.contiguous()
+    _, bwd = launch_shape(M, B, D)
     opts = dict(dtype=torch.float32, device=Z.device)
     zbar = torch.empty((M, D), **opts)
     ybar = torch.empty((B,), **opts)
     tbar = torch.empty((M,), **opts)
     vbar = torch.empty((), **opts)
     sbar = torch.empty((D,), **opts)
-    H = torch.empty((M, M), **opts)
-    zpart = torch.empty((T, M, D), **opts)
-    tpart = torch.empty((T, M), **opts)
-    spart = torch.empty((T, D), **opts)
-    vpart = torch.empty((T,), **opts)
+    parts = BWD_ROWS * (D + 1) + D + 1  # a CTA's partial t̄, Z̄, s̄ and v̄
+    slots = bwd.units * bwd.ranks * parts if bwd.ranks > 1 else 0
+    scratch = torch.empty((bwd.units * (D + 1) + slots,), **opts)  # the units' s̄, v̄; partials
     with torch.cuda.device(Z.device):
         stream = torch.cuda.current_stream(Z.device).cuda_stream
         rc = _lib().svgp_gram_bwd_launch(
-            *map(_p, ops), _p(Gbar), _p(sqbar),
-            _p(zbar), _p(ybar), _p(tbar), _p(vbar), _p(sbar), _p(H),
-            _p(zpart), _p(tpart), _p(spart), _p(vpart),
-            M, B, D, bt, _FAMILY_CODE[family], ctypes.c_void_p(stream))
+            *map(_p, ops), ops[6].numel(), _p(Gbar), _p(sqbar),
+            _p(zbar), _p(ybar), _p(tbar), _p(vbar), _p(sbar), _p(scratch),
+            _p(_tickets(Z.device, stream, bwd.units + 1)), M, B, D, _FAMILY_CODE[family],
+            bwd.ranks, bwd.chunk, bwd.kc, bwd.smem, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"svgp_gram_bwd kernel launch failed: CUDA error {rc}")
     LAUNCHES["svgp_gram_bwd"] += 1

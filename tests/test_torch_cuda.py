@@ -635,6 +635,87 @@ def test_torch_cuda_svgp_gram_reduce_autograd_round_trip(cuda):
         assert _gram_max_err(a, b) <= 3e-3
 
 
+def _gram_call(M, B, D, family, seed):
+    import chip_smoke as cs
+    from portfoliooptgp_tpu_torch.ops import svgp_gram as sg
+
+    ops = cs.gram_operands(M, B, D, seed=seed)
+    G, sq = sg.gram_fwd(*ops[:7], family)
+    bars = sg.gram_bwd(*ops[:7], family, *ops[7:])
+    torch.cuda.synchronize()
+    return ops, (G, sq), bars
+
+
+@pytest.mark.parametrize("M,B,D,family", [(128, 2048, 1, "se"), (128, 8192, 1, "se"),
+                                          (136, 1000, 3, "matern12"), (400, 777, 1, "matern52")])
+def test_torch_cuda_svgp_gram_reruns_are_bitwise_equal(cuda, M, B, D, family):
+    """The reductions across CTAs run in a fixed order (no float atomics,
+    whichever CTA arrives last): two calls on the same operands agree bit
+    for bit in both directions, and G is exactly symmetric."""
+    _, (G1, sq1), bars1 = _gram_call(M, B, D, family, seed=9)
+    _, (G2, sq2), bars2 = _gram_call(M, B, D, family, seed=9)
+    assert torch.equal(G1, G2) and torch.equal(sq1, sq2)
+    for a, b in zip(bars1, bars2):
+        assert torch.equal(a, b)
+    assert torch.equal(G1, G1.T)
+
+
+def _gram_edge_cases():
+    """(M, B, D, family): B = 1; B one below, at and one above a pass of
+    STAGE columns and a change of the forward's rank count at M = 128; B = 8192;
+    M = 8 (half a backward block); M = 136 (partial blocks in both
+    directions); M = 400, above the 390 where the parent narrowed its tile
+    (four backward passes over Kuf's rows); D = 128 (the backward's
+    64-row passes)."""
+    from portfoliooptgp_tpu_torch.ops import svgp_gram as sg
+
+    fwd_units = sg.launch_shape(128, 2048, 1)[0].units
+    boundary = (sg.SMS // fwd_units - 1) * sg.MIN_CHUNK  # the ranks step up past this B
+    cases = [(128, 1, 1, "se"), (8, 1, 3, "matern32")]
+    cases += [(128, b, 1, "se") for b in (sg.STAGE - 1, sg.STAGE, sg.STAGE + 1,
+                                          boundary, boundary + 1, 2047, 2049, 8192)]
+    cases += [(8, 300, 1, "matern12"), (136, 2048, 3, "matern52"), (400, 2048, 1, "se"),
+              (400, 513, 3, "matern32"), (48, 200, 128, "se")]
+    return cases
+
+
+@pytest.mark.parametrize("M,B,D,family", _gram_edge_cases())
+def test_torch_cuda_svgp_gram_edge_shapes_match_plain(cuda, M, B, D, family):
+    """Both kernels against their plain versions at the design's edges,
+    with the tolerances of test_torch_cuda_svgp_gram_kernels_match_plain."""
+    from portfoliooptgp_tpu_torch.ops import svgp_gram as sg
+
+    ops, (G, sq), got = _gram_call(M, B, D, family, seed=M + B + D)
+    Gp, sqp = sg.gram_fwd_plain(*ops[:7], family)
+    want = sg.gram_bwd_plain(*ops[:7], family, *ops[7:])
+    assert _gram_max_err(G, Gp) <= 2e-4
+    assert _gram_max_err(sq, sqp) <= 2e-4
+    gtol = 5e-3 if (D > 1 and family != "se") else 3e-3
+    for name, a, b in zip(("Zbar", "ybar", "tbar", "vbar", "sbar"), got, want):
+        assert a.shape == b.shape, name
+        assert torch.all(torch.isfinite(a)), name
+        assert _gram_max_err(a, b) <= gtol, (name, _gram_max_err(a, b))
+
+
+@pytest.mark.parametrize("M,B", [(128, 2048), (64, 511)])
+def test_torch_cuda_svgp_gram_zero_weight_tail(cuda, M, B):
+    """A weight-0 tail (the iterator's padding) gets exactly 0 in ȳ and
+    leaves G and sq within 2e-4 of the same batch with the tail cut off."""
+    import chip_smoke as cs
+    from portfoliooptgp_tpu_torch.ops import svgp_gram as sg
+
+    Z, X, y, w, t, v, s, Gbar, sqbar = cs.gram_operands(M, B, 1, seed=21)
+    n = int(w.sum())
+    assert 0 < n < B
+    G, sq = sg.gram_fwd(Z, X, y, w, t, v, s, "se")
+    Gc, sqc = sg.gram_fwd(Z, X[:n], y[:n], w[:n], t, v, s, "se")
+    ybar = sg.gram_bwd(Z, X, y, w, t, v, s, "se", Gbar, sqbar)[1]
+    torch.cuda.synchronize()
+    assert torch.all(ybar[n:] == 0)
+    assert _gram_max_err(G, Gc) <= 2e-4
+    assert _gram_max_err(sq, sqc) <= 2e-4
+
+
 def test_torch_cuda_svgp_gram_broken_build_raises(cuda, tmp_path, monkeypatch):
     """No hidden fallback: when the source does not build, a CUDA call
     raises instead of running the plain version, and counts no launch."""

@@ -116,7 +116,71 @@ def test_torch_gram_operands_shapes_and_checks():
         tgram.gram_fwd_plain(Z, X, y, w, t, v, s, "rq")
     with pytest.raises(TypeError):  # a CPU tensor never reaches the kernel
         tgram.gram_fwd_cuda(Z, X, y, w, t, v, s, "se")
-    assert tgram.tile_width(128) == 64 and tgram.tile_width(512) % 4 == 0
+    fwd, bwd = tgram.launch_shape(128, 2048, 1)
+    assert (fwd.units, fwd.ranks, bwd.units, bwd.ranks) == (11, 12, 8, 16)
+
+
+def _parent_raises(M):
+    """Whether the parent design's wrapper refused M inducing points (M % 8
+    == 0): its tile of up to 64 columns, narrowed to fit the backward's two
+    (M, tile) buffers in 200 KB, fell below 4 columns."""
+    bt = min(64, (200 * 1024 // 4 - M - 32) // (2 * M + 3))
+    return bt - bt % 4 < 4
+
+
+@pytest.mark.parametrize("M,B,D", [(128, 2048, 1), (128, 8192, 1), (16, 96, 3), (136, 1, 2),
+                                   (400, 777, 128)])
+def test_torch_gram_launch_shape_depends_on_the_shape_alone(M, B, D):
+    """The grid is a function of (M, B, D): recomputed from scratch it is
+    the same, and it is the same for every family and device (it takes
+    neither)."""
+    first = tgram.launch_shape(M, B, D)
+    tgram.launch_shape.cache_clear()
+    assert tgram.launch_shape(M, B, D) == first
+    assert [type(x) for launch in first for x in launch] == [int] * 10
+
+
+@pytest.mark.parametrize("D", [1, 3, 128])
+def test_torch_gram_launch_shape_shared_memory_fits(D):
+    """Every supported M (M % 8 == 0 up to MAX_M) gets at most the
+    232,448 bytes a Hopper block may opt into, in both directions."""
+    for M in range(8, tgram.MAX_M + 1, 8):
+        for launch in tgram.launch_shape(M, 2048, D):
+            assert 0 < launch.smem <= 232_448, (M, D, launch)
+    assert tgram.launch_shape(128, 2048, 1)[1].kc == 128
+    assert tgram.launch_shape(128, 2048, 128)[1].kc == 64
+
+
+def test_torch_gram_launch_shape_fills_the_card():
+    """At the SVGP path's (128, 2048, 1) each kernel runs at least 120 CTAs
+    and at most the 132 SMs of an H100, at most 16 ranks a unit."""
+    for launch in tgram.launch_shape(128, 2048, 1):
+        ctas = launch.units * launch.ranks
+        assert 120 <= ctas <= 132 and launch.ranks <= tgram.MAX_RANKS, launch
+
+
+@pytest.mark.parametrize("B", [0, 1, 31, 32, 33, 127, 353, 2048, 5000, 8192, 8193])
+def test_torch_gram_launch_shape_covers_the_batch(B):
+    """The ranks' chunks cover B, and none but the last is short, at
+    several M."""
+    for M in (8, 128, 400, 5680):
+        for launch in tgram.launch_shape(M, B, 1):
+            assert 1 <= launch.ranks <= tgram.MAX_RANKS
+            assert launch.ranks * launch.chunk >= B
+            assert B == 0 or (launch.ranks - 1) * launch.chunk < B
+
+
+def test_torch_gram_launch_shape_raises_where_the_parent_raised():
+    for M in range(8, 6000, 8):
+        try:
+            tgram.launch_shape(M, 2048, 1)
+            raised = False
+        except ValueError:
+            raised = True
+        assert raised == _parent_raises(M), M
+    for M, D in ((12, 1), (128, 129)):
+        with pytest.raises(ValueError):
+            tgram.launch_shape(M, 2048, D)
 
 
 def _eligibility_cases():

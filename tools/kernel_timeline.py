@@ -1,14 +1,14 @@
-"""Where the time goes inside the panel-factor, triangular-inverse, dense NLL
-and stationary NLL kernels.
+"""Where the time goes inside the panel-factor, triangular-inverse, dense NLL,
+stationary NLL and SVGP gram kernels.
 
 Builds a copy of `csrc/blocked_panel.cu`, `csrc/trinv.cu`,
-`csrc/dense_nll.cu` and `csrc/stationary_nll.cu`, and of the headers they
-include, with clock64() marks inserted at the boundaries of their phases
-(the copies go to build/timeline/<source>/; the sources are not touched),
-launches each at its main
-path's shape, and prints, for CTA 0 (and for the stationary cluster kernel
-also the last CTA of cluster 0), the SM cycles from the CTA's start to each
-mark, per warp:
+`csrc/dense_nll.cu`, `csrc/stationary_nll.cu` and `csrc/svgp_gram.cu`, and
+of the headers they include, with clock64() marks inserted at the
+boundaries of their phases (the copies go to build/timeline/<source>/; the
+sources are not touched), launches each at its main path's shape, and
+prints, for CTA 0 (and for the stationary cluster kernel also the last CTA
+of cluster 0, for the gram kernels the grid's last CTA), the SM cycles from
+the CTA's start to each mark, per warp:
 
 - panel (nt = 875, B = 1): `issued` (every cp.async of the staging issued),
   `staged` (the first sub-panel's columns landed), then for each sub-panel
@@ -40,9 +40,29 @@ mark, per warp:
   block's tiles copied from their owner and the warp's columns computed),
   and `end` (rank 0's NLL written).
 
+- the SVGP gram kernels (`csrc/svgp_gram.cu`) at chip_smoke.GRAM_TIMED's
+  (128, 2048, 1) and (128, 8192, 1), SE, CTA 0 (unit 0, rank 0: the
+  forward's sq unit, the backward's first 16 rows) and the grid's last CTA
+  (the forward's last diagonal block, the backward's last 16 rows), per
+  pass p of STAGE columns: in the forward's sq unit `m<p>` (m = tᵀKuf of
+  the pass), in its blocks `built<p>` (the pass's Kuf rows built, the
+  barrier passed), then `products` (the warp's last product), `summed`
+  (the CTA's partial in shared memory), `gathered` (its partial written
+  and its ticket taken; in the unit's last CTA, the unit's partials summed
+  too) and `end` (that CTA's block of G written); in the backward
+  `built<p>`, `product<p>` (H·Kuf), `residual<p>` (w e), `W2<p>` (the
+  epilogue's entries), then `summed`, `gathered`, `rows` (the unit's t̄
+  and Z̄ written), `units` (its s̄ and v̄ handed to the second ticket) and
+  `end` (the last unit's CTA: s̄ and v̄ written). Before the marks, one
+  line a kernel says where every CTA ran and when: the SMs (%smid), the
+  CTAs an SM held, and the spread of the CTAs' starts and their durations
+  on the global timer (%globaltimer, ns), up to `gathered`.
+
 Run on a machine with an NVIDIA GPU and nvcc, from the repository root:
 
-    python tools/kernel_timeline.py
+    python tools/kernel_timeline.py [panel|trinv|dense|stationary|gram ...]
+
+(all five by default).
 
 The marks cost a few cycles each. A kernel edit that moves an anchor makes
 the script stop with the anchor it did not find.
@@ -65,12 +85,19 @@ from portfoliooptgp_tpu_torch.ops import cuda_build  # noqa: E402
 from portfoliooptgp_tpu_torch.ops import stationary_nll as st  # noqa: E402
 
 SLOTS = 128  # marks per warp
-MARKS = f'''
+MAX_CTAS = 4096  # CTAs whose SM and span the gram kernels record
+
+
+def marks(cta):
+    """The mark buffer and CLK(n), which records clock64() in lane 0 of each
+    warp of two CTAs: the one whose id (`cta`, an expression) is 0 and the
+    one whose id is g_last_cta."""
+    return f'''
 __device__ long long g_clk[2 * 32 * {SLOTS}];
 __device__ int g_last_cta;  // the second CTA marked (0: CTA 0 alone)
-#define CLK(n) if ((threadIdx.x & 31) == 0 && blockIdx.y == 0 && \\
-                   (blockIdx.x == 0 || (int)blockIdx.x == g_last_cta)) \\
-    g_clk[((blockIdx.x != 0) * 32 + (threadIdx.x >> 5)) * {SLOTS} + (n)] = clock64();
+#define CTA_ID ({cta})
+#define CLK(n) if ((threadIdx.x & 31) == 0 && (CTA_ID == 0 || CTA_ID == g_last_cta)) \\
+    g_clk[((CTA_ID != 0) * 32 + (threadIdx.x >> 5)) * {SLOTS} + (n)] = clock64();
 extern "C" int read_clk(long long* host) {{
   return (int)cudaMemcpyFromSymbol(host, g_clk, sizeof(g_clk));
 }}
@@ -80,6 +107,9 @@ extern "C" int clear_clk(int last_cta) {{
   return e ? e : (int)cudaMemcpyToSymbol(g_last_cta, &last_cta, sizeof(int));
 }}
 '''
+
+
+MARKS = marks("blockIdx.y == 0 ? (int)blockIdx.x : -1")  # CTAs of the first row of the grid
 START = 63  # the mark taken as the CTA starts
 
 # (anchor, text, after the anchor?) for each source
@@ -148,6 +178,62 @@ STATIONARY = [
     ("}\n\nstatic int smem_optin()", "  CLK(60);\n", False),
 ]
 
+# The gram kernels' grids are (C ranks, U units): the second CTA marked is
+# the grid's last (linear id g_last_cta), the last unit's last rank.
+GRAM_MARKS = marks("(int)(blockIdx.y * gridDim.x + blockIdx.x)") + f'''
+// Every CTA's SM and its start and end on the global timer (ns).
+__device__ int g_sm[{MAX_CTAS}];
+__device__ unsigned long long g_span[2 * {MAX_CTAS}];
+__device__ __forceinline__ void cta_mark(int end) {{
+  if (threadIdx.x != 0 || CTA_ID >= {MAX_CTAS}) return;
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  g_span[2 * CTA_ID + end] = t;
+  if (!end) {{
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    g_sm[CTA_ID] = (int)sm;
+  }}
+}}
+extern "C" int read_spans(int* sm, unsigned long long* span) {{
+  int e = (int)cudaMemcpyFromSymbol(sm, g_sm, sizeof(g_sm));
+  return e ? e : (int)cudaMemcpyFromSymbol(span, g_span, sizeof(g_span));
+}}
+'''
+GRAM = [
+    ("#include <stddef.h>\n", GRAM_MARKS, True),
+    # the forward
+    ("  const float v = vp[0];\n", "  CLK(63);\n  cta_mark(0);\n", True),
+    ("      part[h * STAGE + j] = p;\n", "      CLK(2 * ((c0 - b0) / STAGE) + 1);\n", True),
+    ("    const bool last = gather(part, 1,", "    CLK(41);\n", False),
+    ("    if (last && tid == 0) *sq = part[0];\n", "    CLK(42);\n    cta_mark(1);\n", False),
+    ("#pragma unroll 4\n    for (int j = warp; j < nc; j += WARPS) {",
+     "    CLK(2 * ((c0 - b0) / STAGE));\n", False),
+    ("  __syncthreads();  // kI and kw become the warps' tiles", "  CLK(40);\n", False),
+    ("  const bool last = gather(part, FWD_BLOCK * FWD_BLOCK,", "  CLK(41);\n", False),
+    ("  if (!last) return;\n  for (int e = tid;", "  CLK(42);\n  cta_mark(1);\n", False),
+    ("      G[(size_t)gk * M + gi] = part[e];\n    }\n  }\n", "  CLK(60);\n", True),
+    # the backward
+    ("  const float v = vp[0], sqbar = sqbarp[0];\n", "  CLK(63);\n  cta_mark(0);\n", True),
+    ("      const float4* h4 = reinterpret_cast<const float4*>(hT);",
+     "      CLK(4 * ((c0 - b0) / STAGE));\n", False),
+    ("    __syncthreads();  // every product is done with Kc", "    CLK(4 * ((c0 - b0) / STAGE) + 1);\n",
+     False),
+    ("    // Kbar, phi and phi' at the thread's", "    CLK(4 * ((c0 - b0) / STAGE) + 2);\n", False),
+    ("    // Z-bar and s-bar: warp w takes rows", "    CLK(4 * ((c0 - b0) / STAGE) + 3);\n", False),
+    ("  const bool last = gather(part, NP,", "  CLK(41);\n", False),
+    ("  if (!last) return;\n  for (int i = tid; i < BWD_ROWS + BWD_ROWS * Dk;",
+     "  CLK(42);\n  cta_mark(1);\n", False),
+    ("  const bool last_unit = gather(", "  CLK(43);\n", False),
+    ("  if (!last_unit) return;\n", "  CLK(44);\n", False),
+    ("    else *vbar = sv[i];\n  }\n", "  CLK(60);\n", True),
+]
+GRAM_FWD_LABELS = {40: "products", 41: "summed", 42: "gathered", 60: "end",
+                   **{2 * p + i: f"{('built', 'm')[i]}{p}" for p in range(8) for i in range(2)}}
+GRAM_BWD_LABELS = {41: "summed", 42: "gathered", 43: "rows", 44: "units", 60: "end",
+                   **{4 * p + i: f"{('built', 'product', 'residual', 'W2')[i]}{p}"
+                      for p in range(8) for i in range(4)}}
+
 DENSE_LABELS = {62: "staged", 60: "end",
                 **{3 * k + i: f"{'abc'[i]}{k}" for k in range(8) for i in range(3)},
                 **{24 + J: f"W{J}" for J in range(8)}}
@@ -195,15 +281,28 @@ def show(lib, title, labels, nwarps, cta=0):
         print(f"  warp {w}: " + " ".join(f"{lab}={t}" for t, lab in marks), flush=True)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("kernel_timeline: no CUDA device", file=sys.stderr)
-        return 1
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip(), flush=True)
-    rng = torch.Generator(device="cuda").manual_seed(0)
-    stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)  # noqa: E731
+def show_spans(lib, title, n):
+    """Where the gram kernel's n CTAs ran and when: SMs used, CTAs per SM,
+    the spread of their starts and their durations on the global timer."""
+    sm = (ctypes.c_int * MAX_CTAS)()
+    span = (ctypes.c_ulonglong * (2 * MAX_CTAS))()
+    torch.cuda.synchronize()
+    if lib.read_spans(sm, span) != 0:
+        raise SystemExit("reading the spans failed")
+    sms = [sm[i] for i in range(n)]
+    start = [span[2 * i] for i in range(n)]
+    dur = sorted((span[2 * i + 1] - span[2 * i]) / 1e3 for i in range(n))
+    per_sm = sorted({sms.count(x) for x in sms})
+    first = min(start)
+    late = sorted((s - first) / 1e3 for s in start)
+    print(f"{title}: {n} CTAs on {len(set(sms))} SMs (CTAs an SM: {per_sm}); starts "
+          f"spread over {late[-1]:.2f} us (median {late[n // 2]:.2f}); CTA durations "
+          f"{dur[0]:.2f} / {dur[n // 2]:.2f} / {dur[-1]:.2f} us (min / median / max); "
+          f"first start to last end {(max(span[2 * i + 1] for i in range(n)) - first) / 1e3:.2f}"
+          " us", flush=True)
 
+
+def timeline_panel(rng, stream):
     panel = instrumented("blocked_panel", PANEL)
     panel.blocked_panel_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
@@ -220,6 +319,8 @@ def main() -> int:
             raise SystemExit(f"panel launch failed: CUDA error {rc}")
     show(panel, "panel nt=875 B=1, CTA 0, SM cycles from its start:", PANEL_LABELS, 8)
 
+
+def timeline_trinv(rng, stream):
     trinv = instrumented("trinv", TRINV)
     trinv.trinv_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
@@ -236,6 +337,8 @@ def main() -> int:
     show(trinv, "trinv 220 blocks (column-major factors), CTA 0, SM cycles from its start:",
          TRINV_LABELS, 4)
 
+
+def timeline_dense(rng, stream):
     dense = instrumented("dense_nll", DENSE)
     dense.dense_nll_launch.argtypes = (
         [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 6
@@ -261,6 +364,8 @@ def main() -> int:
             show(dense, f"dense NLL ({B}, {N}) {'with W' if with_w else 'value only'}, CTA 0, "
                  "SM cycles from its start:", DENSE_LABELS, 8)
 
+
+def timeline_stationary(rng, stream):
     stationary = instrumented("stationary_nll", STATIONARY)
     stationary.stationary_nll_launch.argtypes = (
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
@@ -312,8 +417,71 @@ def main() -> int:
             for cta, name in ((0, "CTA 0 (rank 0)"), (1, f"CTA {C - 1} (rank {C - 1})")):
                 show(stationary, f"stationary NLL cluster kernel {what}, C = {C}, {name} of "
                      "cluster 0, SM cycles from its start:", CLUSTER_LABELS, 8, cta)
+
+
+def timeline_gram(rng, stream):
+    gram = instrumented("svgp_gram", GRAM)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    gram.svgp_gram_fwd_launch.argtypes = [ptr] * 7 + [i32] + [ptr] * 4 + [i32] * 7 + [ptr]
+    gram.svgp_gram_bwd_launch.argtypes = [ptr] * 7 + [i32] + [ptr] * 9 + [i32] * 8 + [ptr]
+    import chip_smoke as cs
+    from portfoliooptgp_tpu_torch.ops import svgp_gram as sg
+
+    for M, B, D in cs.GRAM_TIMED:
+        Z, X, y, w, t, v, s, Gbar, sqbar = cs.gram_operands(M, B, D, seed=77)
+        ops = [a.data_ptr() for a in (Z, X, y, w, t, v, s)]
+        fwd, bwd = sg.launch_shape(M, B, D)
+        G, sq = torch.empty(M, M, device="cuda"), torch.empty((), device="cuda")
+        fwd_scratch = torch.empty(fwd.units * fwd.ranks * sg.FWD_BLOCK ** 2, device="cuda")
+        parts = sg.BWD_ROWS * (D + 1) + D + 1
+        outs = [torch.empty(n, device="cuda") for n in (
+            M * D, B, M, 1, D, bwd.units * (D + 1) + bwd.units * bwd.ranks * parts)]
+        tickets = torch.zeros(max(fwd.units, bwd.units + 1), dtype=torch.int32, device="cuda")
+        for name, launch, labels in (("forward", fwd, GRAM_FWD_LABELS),
+                                     ("backward", bwd, GRAM_BWD_LABELS)):
+            if gram.clear_clk(launch.units * launch.ranks - 1) != 0:
+                raise SystemExit("clearing the marks failed")
+            for _ in range(3):
+                if launch is fwd:
+                    rc = gram.svgp_gram_fwd_launch(
+                        *ops, s.numel(), G.data_ptr(), sq.data_ptr(), fwd_scratch.data_ptr(),
+                        tickets.data_ptr(), M, B, D, 0, fwd.ranks, fwd.chunk, fwd.smem, stream())
+                else:
+                    rc = gram.svgp_gram_bwd_launch(
+                        *ops, s.numel(), Gbar.data_ptr(), sqbar.data_ptr(),
+                        *(o.data_ptr() for o in outs), tickets.data_ptr(), M, B, D, 0,
+                        bwd.ranks, bwd.chunk, bwd.kc, bwd.smem, stream())
+                if rc != 0:
+                    raise SystemExit(f"gram {name} launch failed: CUDA error {rc}")
+            last = launch.units * launch.ranks - 1
+            show_spans(gram, f"gram {name} ({M}, {B}, {D})", last + 1)
+            for cta, which in ((0, "CTA 0 (unit 0, rank 0)"),
+                               (1, f"CTA {last} (unit {launch.units - 1}, rank "
+                                   f"{launch.ranks - 1})")):
+                show(gram, f"gram {name} ({M}, {B}, {D}) SE, {launch.units} units × C = "
+                     f"{launch.ranks}, {which}, SM cycles from its start:", labels, 8, cta)
+
+
+TIMELINES = {"panel": timeline_panel, "trinv": timeline_trinv, "dense": timeline_dense,
+             "stationary": timeline_stationary, "gram": timeline_gram}
+
+
+def main(argv) -> int:
+    names = argv or list(TIMELINES)
+    if not set(names) <= set(TIMELINES):
+        print(f"kernel_timeline: kernels are {', '.join(TIMELINES)}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("kernel_timeline: no CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    rng = torch.Generator(device="cuda").manual_seed(0)
+    stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)  # noqa: E731
+    for name in names:
+        TIMELINES[name](rng, stream)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
