@@ -24,8 +24,8 @@ Phases, each fatal on failure:
      the tile kernel; the stationary kernel's times with and without W at
      the headline, the weekly and monthly menus' (1, 175) and (1, 40),
      and on the cluster kernel frontier grid A's (20, 262), the NUTS
-     posterior's (8, 512) ARD and a two-year walk-forward's (5, 480)
-     masked, beside its plain version, the torch.linalg chain and its
+     posterior's (8, 512) ARD, grid A's ICM under two NUTS chains
+     (40, 262) and a two-year walk-forward's (5, 480) masked, beside its plain version, the torch.linalg chain and its
      bound, by CUDA-graph replay and eager (`stationary_times`), each
      shape's outputs first held against the plain version on the inputs
      it is timed on (`check_timed`);
@@ -93,7 +93,21 @@ Phases, each fatal on failure:
      by the kernel route, against tests/goldens_torch/svgp_full_aapl*.json
      (the JAX package's float64 and float32 runs, written by
      tools/make_torch_goldens.py --svgp) by `compare_svgp`, with the steps
-     per second of each route and the device's busy share (`phase_svgp`).
+     per second of each route and the device's busy share (`phase_svgp`);
+ 11. the NUTS slice (`phase_nuts`): the chain-batched GPR log-density
+     (`gpr_logdensity_vg`) on the card against CPU float64 copies at
+     tools/smoke_tpu.py's check (C = 8, N = 128, the tile kernel) and at
+     bench.py's (8, 512) ARD posterior (one cluster-kernel launch, with W,
+     per evaluation); bench.py's NUTS workload (8 chains, N = 512, dense
+     mass, depth 8, 100 + 200 transitions) cold under the profiler and
+     warm, with nuts_draws_per_s, acceptance, leaves per transition,
+     launches and host syncs, its posterior held against
+     tests/goldens_torch/nuts_bench.json (`compare_nuts`); then the
+     frontier pipeline with use_nuts=True on the one-year grid (2
+     chains, depth 6, 50 + 50 transitions, from JAX's float64 fit with
+     maxiter 0, where the golden runs start) against
+     tests/goldens_torch/frontier_1y_nuts.json (`compare_frontier_nuts`),
+     with its stationary-kernel launches at batch C·P = 40.
 Then it prints the card's name and power limit, one JSON line describing
 every kernel, and the last line {"ok": true, "device": {...}}.
 
@@ -857,6 +871,268 @@ def run_single_asset(data_root: str, device="cuda", dtype=torch.float32, fast=No
                          f_var=res.f_var.double().cpu().reshape(-1).tolist())
 
 
+# -- the NUTS slice ------------------------------------------------------------
+# bench.py's NUTS workload (bench.py:225-270): 8 chains over the hyperposterior
+# of a GPR with an ARD SquaredExponential over D = 4 inputs on N = 512 points
+# (6 raw hyperparameters), centered_normal_logprior(m0), a dense mass, max_depth
+# 8, 100 warmup and 200 sampling transitions, float32; every leapfrog one
+# chain-batched value+grad (`gpr_logdensity_vg`).
+NUTS_N, NUTS_D = 512, 4
+NUTS_BENCH = dict(num_chains=8, num_warmup=100, num_samples=200, max_depth=8,
+                  dense_mass=True)
+NUTS_GOLDENS = os.path.join(REPO, "tests", "goldens_torch", "nuts_bench.json")
+# The frontier's NUTS on grid A as phase 11c runs it: 2 chains (the library's
+# default), the CLI's depth 6, 50 + 50 transitions.
+FRONTIER_NUTS = dict(nuts_chains=2, nuts_warmup=50, nuts_samples=50, nuts_max_depth=6)
+FRONTIER_NUTS_GOLDENS = os.path.join(REPO, "tests", "goldens_torch", "frontier_1y_nuts.json")
+NUTS_SEEDS = (0, 1, 2)  # the golden runs' keys
+# The frontier's golden NUTS runs: 50 + 50 transitions from the maximum
+# likelihood fit, whose raw kernel variance (−252) the N(0, 1) prior pulls
+# towards 0, leave the chains in transit, so a run's outcome varies widely
+# with its key; eight keys estimate that spread.
+FRONTIER_NUTS_SEEDS = tuple(range(8))
+NUTS_SPREAD = 4.0  # a port run within this many times JAX's seed-to-seed spread, or MC error
+
+
+def nuts_bench_data():
+    """bench.py's posterior data, float32 as bench.py makes it: X (512, 4)
+    uniform on [0, 60), Y (512, 1) a smooth function of three inputs plus
+    0.1·N(0, 1), from np.random.default_rng(0)."""
+    rng = np.random.default_rng(0)
+    X = rng.uniform(0, 60, (NUTS_N, NUTS_D)).astype(np.float32)
+    f = (np.sin(X[:, 0] / np.float32(8.0)) + np.float32(0.3) * np.cos(X[:, 1] / np.float32(5.0))
+         + np.float32(0.05) * X[:, 2] / np.float32(10.0))
+    Y = (f + np.float32(0.1) * rng.normal(size=(NUTS_N,)).astype(np.float32))[:, None]
+    return X, Y
+
+
+def nuts_summary(draws, accept_prob, num_leaves, diverging, inv_mass, step_size):
+    """What compare_nuts holds of a run: draws (C, S, d) of the raw
+    hyperparameters in ravel order; the posterior mean and standard
+    deviation of each, their Monte Carlo standard errors from the spread of
+    the C chains' own means and deviations, the adapted inverse metric's
+    diagonal, the step size, the mean acceptance and leaves per transition,
+    and the divergences."""
+    draws = np.asarray(draws, float)
+    accept_prob, num_leaves, diverging, step_size = (
+        np.asarray(x, float) for x in (accept_prob, num_leaves, diverging, step_size))
+    C, _, d = draws.shape
+    flat = draws.reshape(-1, d)
+    im = np.asarray(inv_mass, float)[0]
+    root_c = np.sqrt(C)
+    return dict(mean=flat.mean(0).tolist(), sd=flat.std(0, ddof=1).tolist(),
+                mcse_mean=(draws.mean(1).std(0, ddof=1) / root_c).tolist(),
+                mcse_sd=(draws.std(1, ddof=1).std(0, ddof=1) / root_c).tolist(),
+                inv_mass_diag=(np.diagonal(im) if im.ndim == 2 else im).tolist(),
+                step_size=float(np.mean(step_size)),
+                accept=float(np.mean(accept_prob)), leaves=float(np.mean(num_leaves)),
+                divergences=int(np.sum(diverging)))
+
+
+def compare_nuts(q, goldens):
+    """Failures (empty when the run passes) of a run's `nuts_summary` against
+    the JAX float64 runs of `goldens["runs"]`: each raw hyperparameter's
+    posterior mean and standard deviation within the runs' mean ± max(4 ×
+    their seed-to-seed spread, 4 × the Monte Carlo standard error of a run
+    of this workload), the log of the adapted metric's diagonal within 4 ×
+    the runs' spread of it (or log 2, the least that a 75-draw variance
+    estimate can promise), the mean acceptance in (0.5, 1.0) as bench.py
+    asserts. A run's standard error is estimated from its 8 chains' spread,
+    itself uncertain by ~25%, so the largest of the four estimates (this
+    run's and the goldens') is taken: JAX's own float32 run lies 5.9 of its
+    own estimates from the float64 runs in one standard deviation (the
+    fourth lengthscale's, a prior-dominated tail), 0.72 of the limit."""
+    runs = goldens["runs"]
+    bad = []
+    for key, err in (("mean", "mcse_mean"), ("sd", "mcse_sd")):
+        ref = np.array([r[key] for r in runs])
+        center, spread = ref.mean(0), np.ptp(ref, axis=0)
+        mcse = np.max([q[err]] + [r[err] for r in runs], axis=0)
+        lim = np.maximum(NUTS_SPREAD * spread, NUTS_SPREAD * mcse)
+        dev = np.abs(np.asarray(q[key]) - center)
+        for i in np.flatnonzero(~(dev <= lim)):
+            bad.append(f"posterior {key} of dim {i}: {q[key][i]:.6g}, JAX {center[i]:.6g} "
+                       f"± {lim[i]:.3g}")
+    ref = np.log(np.array([r["inv_mass_diag"] for r in runs]))
+    lim = np.maximum(NUTS_SPREAD * np.ptp(ref, axis=0), np.log(2.0))
+    dev = np.abs(np.log(np.asarray(q["inv_mass_diag"])) - ref.mean(0))
+    for i in np.flatnonzero(~(dev <= lim)):
+        bad.append(f"adapted inverse metric of dim {i}: {q['inv_mass_diag'][i]:.4g}, JAX "
+                   f"{np.exp(ref.mean(0)[i]):.4g} (log ± {lim[i]:.3g})")
+    if not 0.5 < q["accept"] < 1.0:
+        bad.append(f"mean acceptance {q['accept']:.4f} outside (0.5, 1.0)")
+    return bad
+
+
+def frontier_nuts_distances(q, runs):
+    """How far a frontier NUTS outcome lies from the JAX runs `runs`: the
+    root mean square over entries of (q − mean) / sd of μ and of Σ's upper
+    triangle (mean and sd over the runs), and the L1 distance of the
+    tangency weights from the runs' mean weights."""
+    out = {}
+    for key in ("mu", "Sigma"):
+        ref = np.array([r[key] for r in runs])
+        x = np.asarray(q[key], float)
+        if key == "Sigma":
+            iu = np.triu_indices(ref.shape[1])
+            ref, x = ref[:, iu[0], iu[1]], x[iu]
+        z = (x - ref.mean(0)) / ref.std(0, ddof=1)
+        out[key] = float(np.sqrt(np.mean(z * z)))
+    w = np.array([r["tangency_weights"] for r in runs])
+    out["tangency_weights"] = float(np.abs(np.asarray(q["tangency_weights"]) - w.mean(0)).sum())
+    return out
+
+
+def frontier_nuts_limits(goldens):
+    """NUTS_SPREAD × the largest `frontier_nuts_distances` of a JAX run from
+    the other runs (leave one out): JAX's own spread of the outcome."""
+    runs = goldens["runs"]
+    loo = [frontier_nuts_distances(r, runs[:i] + runs[i + 1:]) for i, r in enumerate(runs)]
+    return {k: NUTS_SPREAD * max(d[k] for d in loo) for k in loo[0]}
+
+
+def compare_frontier_nuts(q, goldens):
+    """Failures of the frontier's NUTS-averaged μ, Σ and tangency weights
+    against the JAX float64 runs of `goldens["runs"]` (eight keys).
+
+    50 + 50 transitions from the maximum-likelihood fit leave the chains in
+    transit (JAX's acceptance 0.12–0.42), so a run's outcome varies widely
+    and with heavy tails across keys: holding each entry within 4 × the
+    spread of three runs fails JAX's own runs against each other in 99% of
+    the ways to pick them. The rule: μ's and Σ's root-mean-square
+    standardized distance from the runs (`frontier_nuts_distances`) within
+    4 × the largest such distance of a JAX run from the others
+    (`frontier_nuts_limits`). The tangency portfolio of such an average is
+    a corner solution that JAX's own runs do not agree on (L1 distances up
+    to 1.69 of a possible 2), so the weights are held to the simplex only
+    and their distance is reported."""
+    bad = []
+    dist, lim = frontier_nuts_distances(q, goldens["runs"]), frontier_nuts_limits(goldens)
+    for key in ("mu", "Sigma"):
+        if not dist[key] <= lim[key]:
+            bad.append(f"frontier NUTS {key}: standardized RMS distance {dist[key]:.3g} from the "
+                       f"JAX runs > {lim[key]:.3g}")
+    w = np.asarray(q["tangency_weights"], float)
+    if not (np.all(w >= -1e-6) and abs(w.sum() - 1.0) <= 1e-4):
+        bad.append(f"frontier NUTS tangency weights off the simplex: sum {w.sum():.6g}, "
+                   f"min {w.min():.3g}")
+    for key in ("mu", "Sigma"):
+        if not np.all(np.isfinite(q[key])):
+            bad.append(f"frontier NUTS {key} not finite")
+    return bad
+
+
+def flat_draws(samples):
+    """(C, S, d) raw draws of a `sample_nuts` result, in ravel order."""
+    from portfoliooptgp_tpu_torch.params import tree_leaves
+
+    leaves = tree_leaves(samples)
+    return torch.cat([x.reshape(x.shape[0], x.shape[1], -1) for x in leaves], dim=-1)
+
+
+def nuts_bench_model(device=DEVICE, dtype=torch.float32):
+    """bench.py's m0: GPR(SE(1.0, [8.0] * 4), noise 0.1)."""
+    from portfoliooptgp_tpu_torch import kernels as tk
+    from portfoliooptgp_tpu_torch.models import gpr
+
+    return gpr.GPR.create(tk.SquaredExponential.create(1.0, np.full(NUTS_D, 8.0), device=device,
+                                                       dtype=dtype), noise_variance=0.1)
+
+
+def run_nuts_bench(seed: int, device=DEVICE, dtype=torch.float32, n: int = NUTS_N, **config):
+    """bench.py's NUTS workload through the port's `sample_nuts` (NUTS_BENCH,
+    overridden by `config`; the first `n` data rows), drawing from a
+    `torch.Generator` seeded `seed`. Returns its `nuts_summary` with the
+    seconds, the log-density evaluations (`vg`: value+grad, the leaves and
+    the start; `logp`: value only, the initial step-size search), the
+    stationary kernel's launches and the host syncs of the NUTS loops."""
+    from portfoliooptgp_tpu_torch.inference import (centered_normal_logprior,
+                                                    gpr_logdensity_pair, gpr_logdensity_vg,
+                                                    nuts, sample_nuts)
+
+    X, Y = (torch.as_tensor(a[:n], device=device, dtype=dtype) for a in nuts_bench_data())
+    m0 = nuts_bench_model(device, dtype)
+    prior = centered_normal_logprior(m0)
+    logp, _ = gpr_logdensity_pair(X, Y, prior)
+    vg = gpr_logdensity_vg(X, Y, prior)
+    evals = {"vg": 0, "logp": 0}
+
+    def counted(name, fn):
+        def call(m):
+            evals[name] += 1
+            return fn(m)
+        return call
+
+    cuda = torch.device(device).type == "cuda"
+    _reset_launch_counts()
+    syncs = dict(nuts.SYNCS)
+    t0 = time.perf_counter()
+    samples, stats = sample_nuts(counted("logp", logp), m0,
+                                 torch.Generator(device=device).manual_seed(seed),
+                                 vg_fn=counted("vg", vg), device=device,
+                                 **dict(NUTS_BENCH, **config))
+    if cuda:
+        torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    cfg = dict(NUTS_BENCH, **config)
+    q = nuts_summary(flat_draws(samples).cpu(), stats.accept_prob.cpu(), stats.num_leaves.cpu(),
+                     stats.diverging.cpu(), stats.inv_mass.cpu(), stats.step_size.cpu())
+    q.update(seconds=elapsed, evals=evals, launches=_launch_counts(),
+             syncs={k: nuts.SYNCS[k] - syncs[k] for k in syncs},
+             draws_per_s=cfg["num_chains"] * (cfg["num_warmup"] + cfg["num_samples"]) / elapsed)
+    return q
+
+
+def run_frontier_nuts(data_root: str, goldens, device=DEVICE, dtype=torch.float32):
+    """`run_frontier_pipeline(use_nuts=True)` on grid 1y (made by
+    make_frontier_market in data_root) with FRONTIER_ARGS and FRONTIER_NUTS,
+    from the JAX float64 fit's leaves (`goldens`: frontier_1y.json) with
+    maxiter 0, where the golden NUTS runs start: a float32 fit from W₀ ends
+    in a basin that moves with rounding (PERF.md, PR 5; phase 8 holds it),
+    and NUTS over 50 + 50 transitions does not leave it. Returns the
+    seconds, nuts_draws, the kernel launches, the batch sizes the
+    stationary kernel was launched at (a count per batch), μ, Σ and the
+    tangency portfolio."""
+    from collections import Counter
+
+    from portfoliooptgp_tpu_torch import kernels as tk
+    from portfoliooptgp_tpu_torch.data.handler import DataHandler
+    from portfoliooptgp_tpu_torch.models import icm
+    from portfoliooptgp_tpu_torch.ops import stationary_nll as st
+    from portfoliooptgp_tpu_torch.params import from_jax_leaves
+    from portfoliooptgp_tpu_torch.pipelines import run_frontier_pipeline
+
+    names = goldens["assets"]
+    dh = DataHandler(data_root=data_root, device=device, dtype=dtype, **frontier_dates("1y"))
+    template = icm.ICMGPR.create(tk.SquaredExponential.create(device=device, dtype=dtype),
+                                 len(names), rank=FRONTIER_ARGS["rank"])
+    model0 = from_jax_leaves(template, [np.asarray(x) for x in goldens["final_leaves"]])
+    batches = Counter()
+    launch = st.stationary_nll_forward_cuda
+
+    def observed(*args):
+        batches[int(args[4].shape[0])] += 1  # err (B, N)
+        return launch(*args)
+
+    _reset_launch_counts()
+    st.stationary_nll_forward_cuda = observed
+    try:
+        t0 = time.perf_counter()
+        res = run_frontier_pipeline(names, dh, model0=model0, device=device, dtype=dtype,
+                                    **dict(FRONTIER_ARGS, maxiter=0, use_nuts=True,
+                                           **FRONTIER_NUTS))
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    finally:
+        st.stationary_nll_forward_cuda = launch
+    return dict(seconds=elapsed, nuts_draws=res.nuts_draws, launches=_launch_counts(),
+                batches=dict(batches), mu=np.asarray(res.mu, float).tolist(),
+                Sigma=np.asarray(res.Sigma, float).tolist(),
+                tangency_weights=np.asarray(res.frontier.tangency_weights, float).tolist(),
+                tangency_return=float(res.frontier.tangency_return))
+
+
 # -- helpers ----------------------------------------------------------------
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -1031,6 +1307,7 @@ STATIONARY_TIMED = {
     "monthly menu": (("se",), (1,), 1, 40, False),
     "frontier grid A": (("se",), (1,), 20, 262, False),  # the cluster kernel from here on
     "NUTS bench": (("se",), (4,), 8, 512, False),  # bench.py's posterior: 8 chains, ARD D = 4
+    "frontier NUTS": (("se",), (1,), 40, 262, False),  # grid A's ICM under 2 chains: C·P = 40
     "two-year walk-forward": (("matern12", "matern12"), (1, 1), 5, 480, True),
 }
 
@@ -1663,7 +1940,7 @@ def phase_headline():
           f"ms of it", flush=True)
     rows, errs = {}, {"stationary_nll": 0.0, "stationary_nll_general": 0.0}
     for label in ("headline", "weekly menu", "monthly menu", "frontier grid A", "NUTS bench",
-                  "two-year walk-forward"):
+                  "frontier NUTS", "two-year walk-forward"):
         families, dims, B, N, masked = STATIONARY_TIMED[label]
         single = len(families) == 1 and dims == (1,) and not masked
         name = "stationary_nll" if single else "stationary_nll_general"
@@ -2981,6 +3258,149 @@ def phase_svgp():
                          for label, q in zip(("cold", "warm"), runs)})
 
 
+def nuts_vg_check(label, X, Y, stacked, prior_of=None):
+    """`gpr_logdensity_vg` on the card in float32 against the same call on
+    CPU float64 copies (VALUE_RTOL, GRAD_ATOL normalized); the stationary
+    kernel's launches and route per evaluation. Returns (max abs value err,
+    launches, {"tile": n, "cluster": n})."""
+    from portfoliooptgp_tpu_torch.inference import gpr_logdensity_vg
+    from portfoliooptgp_tpu_torch.ops import stationary_nll as st
+    from portfoliooptgp_tpu_torch.params import tree_leaves, tree_to
+
+    outs = []
+    for dev, dt in ((DEVICE, torch.float32), ("cpu", torch.float64)):
+        m = tree_to(stacked, dev, dt)
+        vg = gpr_logdensity_vg(torch.as_tensor(X, device=dev, dtype=dt),
+                               torch.as_tensor(Y, device=dev, dtype=dt),
+                               None if prior_of is None else prior_of(dev, dt))
+        if dev == DEVICE:
+            before, ran = dict(st.LAUNCHES), st.kernel_launches()
+        v, g = vg(m)
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+            launches = {k: st.LAUNCHES[k] - before[k] for k in before}
+            ran = launches_since(ran)
+        outs.append((v.to(DEVICE, torch.float64), [x.to(DEVICE, torch.float64)
+                                                    for x in tree_leaves(g)]))
+    verr = _check_values(f"NUTS vg {label}", outs[0][0], outs[1][0])
+    gerr = _check_grads(f"NUTS vg {label}", outs[0][1], outs[1][1])
+    print(f"check NUTS vg {label}: value rel err {verr:.3e}, grad normalized err {gerr:.3e}; "
+          f"launches {launches}, tile kernel {ran['tile']}, cluster kernel {ran['cluster']}",
+          flush=True)
+    return _max_err(outs[0][0], outs[1][0]), launches, ran
+
+
+def _report_nuts(label, q):
+    ev = q["evals"]
+    leaves = ev["vg"] - 1  # the start's value+grad is no leaf
+    print(f"phase 11 NUTS bench f32 {label}: {q['seconds']:.2f} s, nuts_draws_per_s "
+          f"{q['draws_per_s']:.2f}; acceptance {q['accept']:.4f}, leaves per transition "
+          f"{q['leaves']:.2f} (sampling), divergences {q['divergences']}, step {q['step_size']:.4g}; "
+          f"value+grad evaluations {ev['vg']}, value-only {ev['logp']}, stationary_nll_general "
+          f"launches {q['launches']['stationary_nll_general']} "
+          f"({q['launches']['stationary_nll_general'] / (ev['vg'] + ev['logp']):.3f} per "
+          f"evaluation); host syncs {q['syncs']} ({sum(q['syncs'].values()) / leaves:.3f} per "
+          f"leaf); host {1e3 * q['seconds'] / leaves:.4f} ms per leaf", flush=True)
+
+
+def phase_nuts():
+    """Phase 11, the NUTS slice: (a) the chain-batched log-density on the
+    card against CPU float64 copies, at tools/smoke_tpu.py's check (C = 8,
+    N = 128, the tile kernel) and at bench.py's (8, 512) ARD posterior (the
+    cluster kernel, one launch per evaluation); (b) bench.py's NUTS
+    workload cold and warm, its draws per second, acceptance, tree sizes,
+    launches and host syncs, a profiled run for the device's busy share,
+    and the posterior against tests/goldens_torch/nuts_bench.json
+    (`compare_nuts`); (c) the frontier pipeline with use_nuts=True on grid
+    A against tests/goldens_torch/frontier_1y_nuts.json
+    (`compare_frontier_nuts`), with its launches at (C·P, N) = (40, 262)."""
+    from portfoliooptgp_tpu_torch import kernels as tk
+    from portfoliooptgp_tpu_torch.inference import centered_normal_logprior
+    from portfoliooptgp_tpu_torch.models import gpr
+    from portfoliooptgp_tpu_torch.params import ravel, unravel
+
+    # (a) smoke_tpu's fused NUTS log-density check, then bench.py's shape
+    rng = np.random.default_rng(0)
+    X = np.sort(rng.uniform(0, 30, (128, 1)), axis=0).astype(np.float32)
+    Y = rng.normal(size=(128, 1)).astype(np.float32)
+    m = gpr.GPR.create(tk.SquaredExponential.create(1.0, 5.0, device="cpu", dtype=torch.float64),
+                       noise_variance=0.1)
+    stack = unravel(m, ravel(m) * torch.linspace(0.9, 1.1, 8, dtype=torch.float64)[:, None])
+    err, _, ran = nuts_vg_check("C=8 N=128 se", X, Y, stack)
+    if ran["tile"] != 1 or ran["cluster"]:
+        raise AssertionError(f"the C=8 N=128 evaluation ran {ran}, not one tile kernel")
+    Xb, Yb = nuts_bench_data()
+    m0 = nuts_bench_model("cpu", torch.float64)
+    jitter = 0.1 * np.random.default_rng(1).normal(size=(8, 6))
+    stack = unravel(m0, ravel(m0) + torch.tensor(jitter))
+    err2, launches, ran = nuts_vg_check(
+        "bench (8, 512) ARD se D=4", Xb, Yb, stack,
+        lambda dev, dt: centered_normal_logprior(nuts_bench_model(dev, dt)))
+    if launches["stationary_nll_general"] != 1 or ran != {"tile": 0, "cluster": 1}:
+        raise AssertionError(f"a value+grad at (8, 512) launched {launches} ({ran}), not one "
+                             "cluster kernel")
+
+    # (b) bench.py's workload: cold (seed 0, under the profiler) and warm (seed 1)
+    with open(NUTS_GOLDENS) as fh:
+        goldens = json.load(fh)
+    runs = {}
+    busy = device_busy(lambda: runs.update(cold=run_nuts_bench(0)), "nuts_profile.txt",
+                       kernel="stationary_nll")
+    runs["warm"] = run_nuts_bench(1)
+    for label, q in runs.items():
+        _report_nuts(label, q)
+        launches, ev = q["launches"]["stationary_nll_general"], q["evals"]
+        if launches != ev["vg"] + ev["logp"]:
+            raise AssertionError(f"{label}: {launches} kernel launches for "
+                                 f"{ev['vg'] + ev['logp']} evaluations")
+        bad = compare_nuts(q, goldens)
+        if bad:
+            raise AssertionError(f"{label} NUTS posterior does not match the goldens: {bad}")
+    warm = runs["warm"]
+    print("  posterior MATCHes the JAX goldens, cold and warm: mean "
+          + ", ".join(f"{x:.4f}" for x in warm["mean"]) + "; sd "
+          + ", ".join(f"{x:.4f}" for x in warm["sd"]), flush=True)
+    if busy["device_s"] > 0:
+        leaves = runs["cold"]["evals"]["vg"] - 1
+        print(f"  profiled cold run: {busy['wall_s']:.2f} s wall, device busy "
+              f"{busy['device_s']:.3f} s ({100 * busy['device_s'] / busy['wall_s']:.1f}% of it), "
+              f"the stationary kernel {busy['kernel_s']:.3f} s; per leaf: device "
+              f"{1e3 * busy['device_s'] / leaves:.4f} ms (the kernel "
+              f"{1e3 * busy['kernel_s'] / leaves:.4f}), host {1e3 * busy['wall_s'] / leaves:.4f} "
+              "ms", flush=True)
+    else:
+        print("  profiled run: the profiler recorded no device events; device busy share not "
+              "measured", flush=True)
+
+    # (c) the frontier's NUTS on grid A
+    with open(frontier_goldens_path("1y")) as fh:
+        goldens64 = json.load(fh)
+    with open(FRONTIER_NUTS_GOLDENS) as fh:
+        fgoldens = json.load(fh)
+    with tempfile.TemporaryDirectory() as root:
+        make_frontier_market(root, *FRONTIER_GRIDS["1y"])
+        fq = run_frontier_nuts(root, goldens64)
+    nuts_batch = FRONTIER_NUTS["nuts_chains"] * FRONTIER_ASSETS
+    print(f"phase 11 frontier 1y use_nuts f32 cold: {fq['seconds']:.2f} s, nuts_draws "
+          f"{fq['nuts_draws']}, launches {json.dumps(fq['launches'])}, stationary kernel "
+          f"launches by batch {json.dumps(fq['batches'])} ({nuts_batch}: the NUTS "
+          "evaluations)", flush=True)
+    if fq["nuts_draws"] != FRONTIER_NUTS["nuts_chains"] * FRONTIER_NUTS["nuts_samples"]:
+        raise AssertionError(f"nuts_draws {fq['nuts_draws']}")
+    if fq["batches"].get(nuts_batch, 0) < 1:
+        raise AssertionError(f"no stationary kernel launch at batch {nuts_batch}")
+    bad = compare_frontier_nuts(fq, fgoldens)
+    if bad:
+        raise AssertionError(f"frontier NUTS does not match the goldens: {bad}")
+    dist, lim = frontier_nuts_distances(fq, fgoldens["runs"]), frontier_nuts_limits(fgoldens)
+    print("  frontier NUTS MATCHes the JAX goldens: distance / limit " + ", ".join(
+        f"{k} {dist[k]:.3f} / {lim[k]:.3f}" for k in dist) + " (tangency weights not gated)",
+        flush=True)
+    return dict(launches=warm["launches"]["stationary_nll_general"],
+                frontier_launches=fq["batches"].get(nuts_batch, 0),
+                max_abs_err=err2, max_abs_err_single=err, runs=runs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
@@ -3012,6 +3432,9 @@ def main() -> int:
     mi = phase_multi_input()
     gram = phase_svgp_checks()
     svgp = phase_svgp()
+    nuts = phase_nuts()
+    errs["stationary_nll_general"] = max(errs["stationary_nll_general"], nuts["max_abs_err"])
+    errs["stationary_nll"] = max(errs["stationary_nll"], nuts["max_abs_err_single"])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
@@ -3024,7 +3447,9 @@ def main() -> int:
              **stationary_entry(e2e["row"], "inv"),
              value_only=stationary_entry(e2e["row"], "value"),
              at_128x256=stationary_entry(head["rows"]["headline"], "inv"),
-             at_5x480=stationary_entry(head["rows"]["two-year walk-forward"], "inv")),
+             at_5x480=stationary_entry(head["rows"]["two-year walk-forward"], "inv"),
+             at_8x512=stationary_entry(head["rows"]["NUTS bench"], "inv"),
+             launches_nuts_bench=nuts["launches"]),
         dict(name="stationary_nll", route="cuda", source=src,
              replaces="portfoliooptgp_tpu/ops/pallas/stationary_nll.py:197",
              launches=head["launches"], max_abs_err=errs["stationary_nll"],
@@ -3035,7 +3460,8 @@ def main() -> int:
              headline_value_grad_device_ms=head["value_grad_device_ms"],
              **{f"at_{B}x{N}": stationary_entry(head["rows"][label], "inv")
                 for label, (_, _, B, N, _) in STATIONARY_TIMED.items()
-                if label in ("weekly menu", "monthly menu", "frontier grid A", "NUTS bench")}),
+                if label in ("weekly menu", "monthly menu", "frontier grid A", "frontier NUTS")},
+             launches_frontier_nuts=nuts["frontier_launches"]),
         dict(name="blocked_panel", route="cuda",
              source="portfoliooptgp_tpu_torch/csrc/blocked_panel.cu",
              replaces="portfoliooptgp_tpu/ops/pallas/blocked_nll.py:70",

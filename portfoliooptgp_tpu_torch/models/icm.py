@@ -183,6 +183,42 @@ def neg_log_marginal_likelihood_chol(model: ICMGPR, X, Y):
     return torch.sum(fn(Kb, err, noise))
 
 
+def batched_neg_log_marginal_likelihood_chol(stacked, X, Y):
+    """(C,) `neg_log_marginal_likelihood_chol` of C stacked ICM models (leaves
+    with a leading axis of C: W (C, P, rank), raw_kappa (C, P), ...), what
+    the JAX package's chain vmap of that function computes. One batched
+    safe_eigh of the C matrices B; then one call over the C·P shifted
+    problems: a fused-kernel batch of C·P models on the fused tier, else one
+    (C·P, N, N) batch to the dense, blocked, hinv or plain tier. The tier is
+    chosen from (N, P) as for one model (`nll_chol_tier`): the JAX package
+    decides it per chain."""
+    from portfoliooptgp_tpu_torch.kernels import stationary as st_kernels
+
+    n, p = Y.shape
+    c = stacked.W.shape[0]
+    W = stacked.W
+    B = W @ W.transpose(-1, -2) + torch.diag_embed(positive(stacked.raw_kappa))
+    lam_b, E = safe_eigh(B)  # (C, P), (C, P, P)
+    err = (Y @ E).transpose(-1, -2).reshape(c * p, n)  # per chain, per eigenpair
+    noise = stacked.likelihood.variance[:, None].expand(c, p).reshape(-1)
+    tier = nll_chol_tier(stacked, X, Y)
+    if tier == "fused":
+        Xs = stacked.kernel.slice_x(X)
+        d2 = st_kernels.scaled_squared_distance(
+            Xs, Xs, torch.ones((), dtype=Xs.dtype, device=Xs.device))
+        v = (lam_b * stacked.kernel.variance[:, None]).reshape(-1)
+        ell = stacked.kernel.lengthscales[:, None].expand(c, p).reshape(-1)
+        fam = st_kernels.FUSED_FAMILY_OF[type(stacked.kernel)]
+        losses = st_mod.batched_nll_stationary(d2, err, v, ell, noise, fam)
+    else:
+        Kx = stacked.kernel.K(X)  # (C, N, N), one per chain, shared by its P outputs
+        Kb = (lam_b[:, :, None, None] * Kx[:, None]).reshape(c * p, n, n)
+        fn = {"dense": nll_mod.batched_nll, "blocked": blocked_mod.batched_nll_blocked,
+              "hinv": blocked_mod.batched_nll_hinv, "plain": _plain_nll}[tier]
+        losses = fn(Kb, err, noise)
+    return torch.sum(losses.reshape(c, p), dim=-1)
+
+
 def predict_f(model: ICMGPR, X, Y, Xnew):
     """Posterior mean (M, P) and per-output marginal variance (M, P) of the
     latent multi-output process at Xnew."""

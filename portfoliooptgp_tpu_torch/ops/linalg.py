@@ -61,7 +61,14 @@ def mahalanobis_from_chol(L, y):
 class _SafeEigh(torch.autograd.Function):
     @staticmethod
     def forward(ctx, A):
-        lam, E = torch.linalg.eigh(A)
+        # torch.linalg.eigh raises where jnp.linalg.eigh returns NaN: a
+        # matrix with a non-finite entry is factored as I and given NaN
+        # outputs (and NaN gradients), the others as they are
+        ok = torch.isfinite(A).flatten(-2).all(-1)[..., None]
+        eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+        lam, E = torch.linalg.eigh(torch.where(ok[..., None], A, eye))
+        nan = torch.full((), float("nan"), dtype=A.dtype, device=A.device)
+        lam, E = torch.where(ok, lam, nan), torch.where(ok[..., None], E, nan)
         ctx.save_for_backward(lam, E)
         return lam, E
 
@@ -93,7 +100,9 @@ def safe_eigh(A):
     inside a degenerate eigenspace (NLLs, log-determinants, solves), those
     terms cancel; this VJP zeroes F where |λ_j − λ_i| ≤ 64·eps·max(1,
     max|λ|), the JAX package's threshold. The ICM model needs it: its
-    B = WWᵀ + diag(κ) has p − rank tied eigenvalues at the uniform-κ start."""
+    B = WWᵀ + diag(κ) has p − rank tied eigenvalues at the uniform-κ start.
+    A matrix with a non-finite entry gives NaN λ and E, as in JAX (a NUTS
+    trajectory that diverges reaches one), instead of an exception."""
     return _SafeEigh.apply(A)
 
 

@@ -125,6 +125,32 @@ def batch_size(tree) -> int:
     return int(tree_leaves(tree)[0].shape[0])
 
 
+def ravel(tree):
+    """(B, dim): each model of a stacked tree as one flat vector, the
+    counterpart of `jax.flatten_util.ravel_pytree` with the batch axis
+    first. Leaves go in `tree_leaves` order, each flattened in C order
+    without its batch axis, so the flat order is the JAX package's for one
+    model (the GPR model `GPR(SE(ARD D=4), Gaussian, Zero)` has dim 6:
+    variance, 4 lengthscales, noise)."""
+    leaves = tree_leaves(tree)
+    b = leaves[0].shape[0]
+    return torch.cat([leaf.reshape(b, -1) for leaf in leaves], dim=1)
+
+
+def unravel(template, flat):
+    """`template`'s structure with its leaves cut from `flat` (..., dim):
+    leading axes of `flat` replace the template's batch axis, so (C, dim)
+    gives a stacked tree of C models and (C, S, dim) leaves of shape
+    (C, S, ...). Differentiable in `flat`."""
+    shapes = [leaf.shape[1:] for leaf in tree_leaves(template)]
+    sizes = [int(np.prod(s, dtype=int)) for s in shapes]
+    if sum(sizes) != flat.shape[-1]:
+        raise ValueError(f"template has {sum(sizes)} entries, got {flat.shape[-1]}")
+    lead = flat.shape[:-1]
+    pieces = torch.split(flat, sizes, dim=-1)
+    return tree_replace(template, [x.reshape(*lead, *s) for x, s in zip(pieces, shapes)])
+
+
 def from_jax_leaves(template, leaves):
     """The port's model with the parameters of a JAX model.
 

@@ -8,11 +8,12 @@ Port of portfoliooptgp_tpu/pipelines/frontier_pipeline.py:
    problems: the fused stationary kernel at padded N ≤ 512, the
    `blocked_hinv` tier with the triangular-inverse kernel at
    1024 < padded N ≤ 4096);
-3. the posterior (μ, Σ) of next-period returns → the long-only efficient
+3. optionally (`use_nuts=True`) NUTS over the ICM hyperposterior, chains
+   in lockstep, every evaluation one batch of C·P shifted problems
+   (`icm.batched_neg_log_marginal_likelihood_chol`), and the predictive
+   moments averaged over the thinned draws (Bayesian model averaging);
+4. the posterior (μ, Σ) of next-period returns → the long-only efficient
    frontier and the tangency portfolio.
-
-Averaging over a NUTS hyperposterior (`use_nuts=True`) waits for the
-inference module (ROADMAP.md queue 1: inference/) and raises.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 from portfoliooptgp_tpu_torch import kernels as km
 from portfoliooptgp_tpu_torch.device import DEFAULT_DEVICE, DEFAULT_DTYPE, as_tensor
 from portfoliooptgp_tpu_torch.models import icm
-from portfoliooptgp_tpu_torch.params import tree_to
+from portfoliooptgp_tpu_torch.params import ravel, tree_map, tree_to
 from portfoliooptgp_tpu_torch.portfolio.frontier import Frontier, efficient_frontier
 from portfoliooptgp_tpu_torch.train import lbfgs
 
@@ -74,20 +75,23 @@ def run_frontier_pipeline(
     maxiter: int = 300,
     horizon_rows: int = 1,
     use_nuts: bool = False,
+    nuts_warmup: int = 200,
+    nuts_samples: int = 200,
+    nuts_chains: int = 2,
+    nuts_max_depth: int = 8,
     risk_free_rate: float = 0.01 / 252,
     seed: int = 0,
     model0: Optional[icm.ICMGPR] = None,
+    nuts_source=None,
     device=DEFAULT_DEVICE,
     dtype=DEFAULT_DTYPE,
 ) -> FrontierResult:
     """The JAX package's `run_frontier_pipeline` on (device, dtype). The fit
     starts from `model0` when given (moved to device and dtype), else from
     `ICMGPR.create(SquaredExponential, ...)` with W drawn from a
-    `torch.Generator` seeded by `seed`."""
-    if use_nuts:
-        raise NotImplementedError(
-            "NUTS hyperposterior averaging is not ported yet: ROADMAP.md queue 1: "
-            "inference/")
+    `torch.Generator` seeded by `seed`. With `use_nuts`, NUTS draws from
+    `nuts_source` (a random source of inference/source.py) or, by default,
+    a `torch.Generator` on the device seeded by `seed`."""
     # 1. shared-grid multi-output target matrix
     Xs, Ymat, Xnew = frontier_inputs(assets, data_handler, predict_y=predict_y,
                                      horizon_rows=horizon_rows, device=device, dtype=dtype)
@@ -105,12 +109,41 @@ def run_frontier_pipeline(
                     maxiter=maxiter)
     model = res.params
 
-    with torch.no_grad():
-        mu, Sigma = icm.posterior_asset_moments_chol(model, Xs, Ymat, Xnew)
+    draws = None
+    if use_nuts:
+        # 3. Bayesian averaging of the predictive moments over the hyperposterior
+        from portfoliooptgp_tpu_torch.inference import sample_nuts
 
-    # 3. frontier
+        def logdensity(m):
+            flat = ravel(m)
+            return (-icm.batched_neg_log_marginal_likelihood_chol(m, Xs, Ymat)
+                    - 0.5 * torch.sum(flat ** 2, dim=-1))
+
+        source = (nuts_source if nuts_source is not None
+                  else torch.Generator(device=Xs.device).manual_seed(seed))
+        samples, _ = sample_nuts(logdensity, model, source, num_warmup=nuts_warmup,
+                                 num_samples=nuts_samples, num_chains=nuts_chains,
+                                 max_depth=nuts_max_depth, device=Xs.device)
+        flat_samples = tree_map(lambda x: x.reshape((-1,) + x.shape[2:]), samples)
+        draws = nuts_chains * nuts_samples
+        thin = max(draws // 64, 1)
+        with torch.no_grad():
+            moments = [icm.posterior_asset_moments_chol(lbfgs.index_pytree(flat_samples, i), Xs,
+                                                        Ymat, Xnew)
+                       for i in range(0, draws, thin)]
+        mus = torch.stack([m for m, _ in moments])
+        mu = torch.mean(mus, dim=0)
+        # law of total (co)variance: E[Σ] + Cov[μ]
+        mu_dev = mus - mu
+        Sigma = (torch.mean(torch.stack([S for _, S in moments]), dim=0)
+                 + mu_dev.T @ mu_dev / mus.shape[0])
+    else:
+        with torch.no_grad():
+            mu, Sigma = icm.posterior_asset_moments_chol(model, Xs, Ymat, Xnew)
+
+    # 4. frontier
     mu, Sigma = mu.cpu().numpy(), Sigma.cpu().numpy()
     frontier = efficient_frontier(mu, Sigma, risk_free_rate=risk_free_rate, device=device,
                                   dtype=dtype)
     return FrontierResult(assets=list(assets), mu=mu, Sigma=Sigma, frontier=frontier,
-                          model=model, fit=res)
+                          model=model, nuts_draws=draws, fit=res)

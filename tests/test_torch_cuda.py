@@ -736,3 +736,82 @@ def test_torch_cuda_svgp_gram_broken_build_raises(cuda, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         sg.gram_reduce(*ops, "se")
     assert sg.LAUNCHES == before
+
+
+# -- the NUTS slice: the chain-batched GPR log-density on the cluster kernel --
+
+def _nuts_stack(device, dtype, chains=8, seed=1):
+    """bench.py's m0 jittered into `chains` models, and its data."""
+    from chip_smoke import nuts_bench_data, nuts_bench_model
+    from portfoliooptgp_tpu_torch.params import ravel, unravel
+
+    m0 = nuts_bench_model(device, dtype)
+    jitter = 0.1 * np.random.default_rng(seed).normal(size=(chains, 6))
+    stack = unravel(m0, ravel(m0) + torch.tensor(jitter, device=device, dtype=dtype))
+    X, Y = (torch.tensor(a, device=device, dtype=dtype) for a in nuts_bench_data())
+    return m0, stack, X, Y
+
+
+def test_torch_cuda_nuts_vg_bench_shape_matches_cpu(cuda):
+    """`gpr_logdensity_vg` at bench.py's (8, 512) ARD posterior: one cluster
+    kernel launch, values and gradients against CPU float64."""
+    from portfoliooptgp_tpu_torch.inference import centered_normal_logprior, gpr_logdensity_vg
+    from portfoliooptgp_tpu_torch.params import tree_leaves
+
+    outs = []
+    for dev, dt in ((cuda, torch.float32), ("cpu", torch.float64)):
+        m0, stack, X, Y = _nuts_stack(dev, dt)
+        before, ran = st.LAUNCHES["stationary_nll_general"], None
+        if dev == cuda:
+            ran = st.kernel_launches()
+        v, g = gpr_logdensity_vg(X, Y, centered_normal_logprior(m0))(stack)
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert st.LAUNCHES["stationary_nll_general"] == before + 1
+            now = st.kernel_launches()
+            assert now["cluster"] == ran["cluster"] + 1 and now["tile"] == ran["tile"]
+        outs.append((v.double().cpu(), [x.double().cpu() for x in tree_leaves(g)]))
+    (v, g), (vr, gr) = outs
+    assert torch.all(torch.isfinite(v))
+    np.testing.assert_allclose(v.numpy(), vr.numpy(), rtol=3e-3)
+    for a, b in zip(g, gr):
+        scale = max(float(b.abs().max()), 1.0)
+        np.testing.assert_allclose(a.numpy() / scale, b.numpy() / scale, atol=2e-2)
+
+
+def test_torch_cuda_nuts_leapfrog_matches_cpu(cuda):
+    """16 leapfrog steps of the 8 chains on the card (float32, the cluster
+    kernel per step) against the same steps on the CPU in float64 from the
+    same momenta: positions within 1e-3, momenta within 2e-2 of their
+    largest entry (the gradients' tolerance)."""
+    from portfoliooptgp_tpu_torch.inference import (centered_normal_logprior,
+                                                    gpr_logdensity_vg, hmc)
+    from portfoliooptgp_tpu_torch.params import ravel, unravel
+
+    p0 = np.random.default_rng(2).normal(size=(8, 6))
+    outs = []
+    for dev, dt in ((cuda, torch.float32), ("cpu", torch.float64)):
+        m0, stack, X, Y = _nuts_stack(dev, dt)
+        vg = gpr_logdensity_vg(X, Y, centered_normal_logprior(m0))
+
+        def grad(z):
+            return ravel(vg(unravel(m0, z))[1])
+
+        q, p, _ = hmc.leapfrog(grad, ravel(stack), torch.tensor(p0, device=dev, dtype=dt),
+                               0.01, torch.full((8, 6), 0.05, device=dev, dtype=dt), 16)
+        outs.append((q.double().cpu().numpy(), p.double().cpu().numpy()))
+    (q, p), (qr, pr) = outs
+    np.testing.assert_allclose(q, qr, atol=1e-3)
+    np.testing.assert_allclose(p / np.abs(pr).max(), pr / np.abs(pr).max(), atol=2e-2)
+
+
+def test_torch_cuda_sample_nuts_short_run(cuda):
+    """A short run of bench.py's workload (40 + 20 transitions): every
+    evaluation one stationary kernel launch, acceptance in (0.5, 1)."""
+    from chip_smoke import run_nuts_bench
+
+    q = run_nuts_bench(0, device="cuda", num_warmup=40, num_samples=20)
+    ev = q["evals"]
+    assert q["launches"]["stationary_nll_general"] == ev["vg"] + ev["logp"]
+    assert 0.5 < q["accept"] < 1.0
+    assert np.all(np.isfinite(q["mean"]))

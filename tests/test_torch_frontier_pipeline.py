@@ -11,7 +11,8 @@ two L-BFGS runs follow the same path up to rounding. Tolerances: the final
 NLL rtol 1e-8, the fitted leaves, μ and Σ rtol 1e-4 (L-BFGS stops at ftol,
 and the lengthscale is weakly identified), the frontier's returns and
 volatilities atol 1e-6 and its weights atol 1e-3 (each point an L-BFGS
-solve stopped at ftol).
+solve stopped at ftol). With `use_nuts=True` the port's NUTS replays the
+JAX keys (tests/jax_replay.py) and the averaged moments agree at rtol 1e-6.
 """
 
 import jax
@@ -95,8 +96,28 @@ def _scaled_inputs(root, names):
     return (X - X.mean()) / (X.std() + 1e-12), np.column_stack(cols)
 
 
-def test_torch_frontier_pipeline_nuts_raises(market):
+def test_torch_frontier_pipeline_nuts_matches_jax(market):
+    """`use_nuts=True` against the JAX package: 2 chains, 10 + 10
+    transitions, depth 4, NUTS drawing from JAX's PRNGKey(0) replayed
+    (tests/jax_replay.JaxKeys), float64. maxiter 5: the two short L-BFGS
+    runs agree to ~1e-10 (at maxiter 30 they stop at ftol 1e-4 apart, see
+    above), so the chains start from the same point. μ and Σ, averaged over
+    the thinned draws, at rtol 1e-6."""
+    from jax_replay import JaxKeys
+
     root, names = market
-    dh = TDataHandler(data_root=root, device="cpu", dtype=torch.float64, **DATES)
-    with pytest.raises(NotImplementedError, match="queue 1: inference/"):
-        trun(names, dh, use_nuts=True, device="cpu", dtype=torch.float64, **ARGS)
+    args = dict(ARGS, maxiter=5, use_nuts=True, nuts_warmup=10, nuts_samples=10,
+                nuts_chains=2, nuts_max_depth=4)
+    want = jrun(names, JDataHandler(data_root=root, **DATES), **args)
+    jm0 = jicm.ICMGPR.create(jk.SquaredExponential.create(), num_outputs=4, rank=3,
+                             noise_variance=1e-2, seed=0)
+    m0 = tparams.from_jax_leaves(
+        ticm.ICMGPR.create(tk.SquaredExponential.create(device="cpu", dtype=torch.float64), 4,
+                           rank=3),
+        [np.asarray(x) for x in jax.tree.leaves(jm0)])
+    got = trun(names, TDataHandler(data_root=root, device="cpu", dtype=torch.float64, **DATES),
+               model0=m0, nuts_source=JaxKeys.split_from(jax.random.PRNGKey(0), 2),
+               device="cpu", dtype=torch.float64, **args)
+    assert got.nuts_draws == want.nuts_draws == 20
+    np.testing.assert_allclose(got.mu, want.mu, rtol=1e-6)
+    np.testing.assert_allclose(got.Sigma, want.Sigma, rtol=1e-6)

@@ -205,3 +205,94 @@ def test_torch_efficient_frontier_float64_matches_jax():
     np.testing.assert_allclose(got.tangency_weights, want.tangency_weights, atol=1e-3)
     np.testing.assert_allclose(got.tangency_return, want.tangency_return, atol=1e-6)
     np.testing.assert_allclose(got.tangency_volatility, want.tangency_volatility, atol=1e-6)
+
+
+def _stacks(jm, tm, C, seed):
+    """C models around (jm, tm), the same in both packages: raw leaves
+    jittered by 0.1·N(0, 1) in ravel order (a stacked port model, and the
+    JAX package's stacked pytree)."""
+    import jax.flatten_util
+
+    flat, unravel = jax.flatten_util.ravel_pytree(jm)
+    rng = np.random.default_rng(seed)
+    flats = np.asarray(flat)[None] + 0.1 * rng.normal(size=(C, flat.size))
+    flats = flats.astype(np.asarray(flat).dtype)
+    return (jax.vmap(unravel)(jnp.asarray(flats)),
+            tparams.unravel(tm, torch.tensor(flats)))
+
+
+def _batched_grads(tms, X, Y):
+    leaves = [x.detach().clone().requires_grad_(True) for x in tparams.tree_leaves(tms)]
+    value = ticm.batched_neg_log_marginal_likelihood_chol(tparams.tree_replace(tms, leaves),
+                                                          X, Y)
+    return value.detach(), [g.numpy() for g in torch.autograd.grad(value.sum(), leaves)]
+
+
+def test_torch_icm_batched_chol_nll_float64_matches_jax():
+    """The chain-batched Cholesky NLL (plain tier) equals per-chain calls of
+    the single-model function and JAX's chain vmap, values and gradients."""
+    from portfoliooptgp_tpu_torch.train.lbfgs import index_pytree
+
+    X, Y = _data(30, 3, 6)
+    jm, tm = _models(3, 2, jnp.float64)
+    jms, tms = _stacks(jm, tm, 3, 7)
+    tX, tY = torch.tensor(X), torch.tensor(Y)
+    assert ticm.nll_chol_tier(tms, tX, tY) == "plain"
+    val, grads = _batched_grads(tms, tX, tY)
+    for c in range(3):
+        v, gs = _grads(ticm.neg_log_marginal_likelihood_chol, index_pytree(tms, c), tX, tY)
+        np.testing.assert_allclose(float(val[c]), float(v), rtol=1e-12)
+        for g, w in zip(grads, gs):
+            np.testing.assert_allclose(g[c], w[0], rtol=1e-10, atol=1e-13)
+    jval, jgrad = jax.vmap(jax.value_and_grad(
+        lambda m: jicm.neg_log_marginal_likelihood_chol(m, X, Y)))(jms)
+    np.testing.assert_allclose(val.numpy(), np.asarray(jval), rtol=1e-9)
+    for g, w in zip(grads, jax.tree.leaves(jgrad)):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=1e-7, atol=1e-10)
+
+
+def test_torch_icm_batched_chol_nll_float32_fused():
+    """The same in float32 on the fused tier (one batch of C·P = 8 models
+    through the kernel's plain twin on the CPU): per-chain calls rtol 1e-5,
+    JAX's chain vmap (Pallas in interpret mode) at the single-model float32
+    test's tolerances."""
+    from portfoliooptgp_tpu_torch.train.lbfgs import index_pytree
+
+    X, Y = _data(200, 4, 3)
+    X = (X * 20.0).astype(np.float32)
+    Y = Y.astype(np.float32)
+    jm, tm = _models(4, 2, jnp.float32)
+    jms, tms = _stacks(jm, tm, 2, 8)
+    tX, tY = torch.tensor(X), torch.tensor(Y)
+    assert ticm.nll_chol_tier(tms, tX, tY) == "fused"
+    val, grads = _batched_grads(tms, tX, tY)
+    for c in range(2):
+        v, gs = _grads(ticm.neg_log_marginal_likelihood_chol, index_pytree(tms, c), tX, tY)
+        np.testing.assert_allclose(float(val[c]), float(v), rtol=1e-5)
+        for g, w in zip(grads, gs):
+            np.testing.assert_allclose(g[c], w[0], rtol=1e-4, atol=1e-4 * max(np.abs(w).max(), 1))
+    jval, jgrad = jax.vmap(jax.value_and_grad(
+        lambda m: jicm.neg_log_marginal_likelihood_chol(m, jnp.asarray(X), jnp.asarray(Y))))(jms)
+    np.testing.assert_allclose(val.numpy(), np.asarray(jval), rtol=2e-5)
+    for g, w in zip(grads, jax.tree.leaves(jgrad)):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g, w, atol=2e-2 * max(np.abs(w).max(), 1.0))
+
+
+def test_torch_safe_eigh_nonfinite_gives_nan():
+    """A batch with an infinite and a NaN matrix: those give NaN λ, as
+    jnp.linalg.eigh does (JAX's E there is NaN or I; the port's NaN), and
+    NaN gradients, the finite one its decomposition (where
+    torch.linalg.eigh alone raises)."""
+    rng = np.random.default_rng(9)
+    w = rng.normal(size=(3, 4, 2))
+    A = w @ np.swapaxes(w, 1, 2) + np.eye(4)
+    A[1, 0, 0], A[2, 1, 2] = np.inf, np.nan
+    lam, E = tsafe_eigh(torch.tensor(A))
+    jlam, _ = jax.vmap(jsafe_eigh)(jnp.asarray(A))
+    np.testing.assert_array_equal(np.isnan(lam.numpy()), np.isnan(np.asarray(jlam)))
+    assert np.all(np.isnan(E[1:].numpy())) and not np.any(np.isnan(E[0].numpy()))
+    np.testing.assert_allclose(lam[0].numpy(), np.asarray(jlam[0]), rtol=1e-12)
+    At = torch.tensor(A, requires_grad=True)
+    (g,) = torch.autograd.grad(torch.sum(torch.log(tsafe_eigh(At)[0])), At)
+    assert np.all(np.isfinite(g[0].numpy())) and np.all(np.isnan(g[1:].numpy()))

@@ -74,12 +74,33 @@ on `chip_smoke.SVGP_GRID` points and the iteration count; the initial
 leaves once. About 1 min in float64 and 2 min in float32 on one core:
 
     JAX_PLATFORMS=cpu python tools/make_torch_goldens.py --svgp --float32
+
+With `--nuts` it runs bench.py's NUTS workload in the JAX package
+(`bench.py:225-270`: 8 chains, `chip_smoke.nuts_bench_data`, ARD SE over
+D = 4, `centered_normal_logprior`, `chip_smoke.NUTS_BENCH`) in float64 with
+the keys `jax.random.key(s)` for s in `chip_smoke.NUTS_SEEDS`, each seed in
+its own process (the log-density's gradient in closed form, held equal to
+`gpr_logdensity_vg` first), and once in float32 with key 0 through the
+dense XLA path per chain (the router's Pallas path would run in interpret
+mode on the CPU); it writes tests/goldens_torch/nuts_bench.json: the
+configuration, and per run `chip_smoke.nuts_summary` and its seconds.
+About 40 min on four cores. With `--frontier 1y --nuts` it runs the JAX
+frontier pipeline's NUTS block (`frontier_pipeline.py:99-129`) in float64
+from the float64 fit of tests/goldens_torch/frontier_1y.json, with
+`chip_smoke.FRONTIER_NUTS` and `PRNGKey(s)` for each seed of
+`chip_smoke.FRONTIER_NUTS_SEEDS` (eight, in parallel processes: about 40 min
+on eight cores), and writes
+tests/goldens_torch/frontier_1y_nuts.json: per seed μ, Σ, the tangency
+weights, return and volatility:
+
+    JAX_PLATFORMS=cpu python tools/make_torch_goldens.py --nuts
 """
 
 from __future__ import annotations
 
 import json
 import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -402,7 +423,207 @@ def svgp() -> int:
     return 0
 
 
+def nuts_part(seed: int) -> dict:
+    """One JAX run of bench.py's NUTS workload (float32 with --float32)."""
+    import jax.flatten_util
+
+    from chip_smoke import NUTS_BENCH, NUTS_D, nuts_bench_data, nuts_summary
+    from portfoliooptgp_tpu import kernels as km
+    from portfoliooptgp_tpu.inference.fused_logdensity import (gpr_logdensity_pair,
+                                                               gpr_logdensity_vg)
+    from portfoliooptgp_tpu.inference.sampler import centered_normal_logprior, sample_nuts
+
+    from jax.scipy.linalg import solve_triangular
+
+    dt = jnp.float32 if FLOAT32 else jnp.float64
+    X, Y = (jnp.asarray(a, dt) for a in nuts_bench_data())
+    m0 = gpr.GPR.create(km.SquaredExponential.create(1.0, np.full(NUTS_D, 8.0)),
+                        noise_variance=0.1)
+    m0 = jax.tree.map(lambda x: jnp.asarray(x, dt), m0)
+    logprior = centered_normal_logprior(m0)
+    if FLOAT32:
+        def logp(m):
+            return gpr.log_marginal_likelihood(m, X, Y) + logprior(m)
+        vg = jax.value_and_grad(logp)
+    else:
+        # The same log-density as gpr_logdensity_vg with the NLL's gradient
+        # with respect to K in closed form, ½(K⁻¹ − ααᵀ), instead of
+        # differentiating the Cholesky factor (1.5x faster on the CPU);
+        # held equal to gpr_logdensity_vg below before the run.
+        @jax.custom_vjp
+        def nll_k(K, y):
+            return nll_fwd(K, y)[0]
+
+        def nll_fwd(K, y):
+            L = jnp.linalg.cholesky(K)
+            a = solve_triangular(L, y, lower=True)
+            W = solve_triangular(L, jnp.eye(y.shape[0], dtype=y.dtype), lower=True)
+            value = (0.5 * a @ a + jnp.sum(jnp.log(jnp.diagonal(L)))
+                     + 0.5 * y.shape[0] * jnp.log(2 * jnp.pi))
+            return value, (W.T @ W, W.T @ a)
+
+        def nll_bwd(res, g):
+            Kinv, alpha = res
+            return g * 0.5 * (Kinv - jnp.outer(alpha, alpha)), g * alpha
+
+        nll_k.defvjp(nll_fwd, nll_bwd)
+
+        def closed(m):
+            K = m.kernel.K(X) + m.likelihood.variance * jnp.eye(X.shape[0], dtype=dt)
+            return -nll_k(K, (Y - m.mean_function(X))[:, 0]) + logprior(m)
+
+        logp, _ = gpr_logdensity_pair(X, Y, logprior_fn=logprior)
+        vg = jax.value_and_grad(closed)
+        ms = jax.tree.map(lambda x: jnp.stack([x] * 8) * jnp.linspace(
+            0.9, 1.1, 8).reshape((8,) + (1,) * jnp.ndim(x)), m0)
+        got, want = jax.vmap(vg)(ms), jax.vmap(gpr_logdensity_vg(X, Y, logprior))(ms)
+        for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-10)
+    run = jax.jit(lambda key: sample_nuts(logp, m0, key, vg_fn=vg, **NUTS_BENCH))
+    t0 = time.perf_counter()
+    samples, stats = jax.block_until_ready(run(jax.random.key(seed)))
+    elapsed = time.perf_counter() - t0
+    draws = jax.vmap(jax.vmap(lambda m: jax.flatten_util.ravel_pytree(m)[0]))(samples)
+    return dict(seed=seed, seconds=elapsed,
+                **nuts_summary(draws, stats.accept_prob, stats.num_leaves, stats.diverging,
+                               stats.inv_mass, stats.step_size))
+
+
+def frontier_nuts_part(seed: int) -> dict:
+    """The JAX frontier pipeline's NUTS block on grid 1y, float64, from the
+    fit of frontier_1y.json, with PRNGKey(seed)."""
+    import jax.flatten_util
+
+    from chip_smoke import (FRONTIER_ARGS, FRONTIER_GRIDS, FRONTIER_NUTS, frontier_dates,
+                            frontier_goldens_path, make_frontier_market)
+    from portfoliooptgp_tpu import kernels as km
+    from portfoliooptgp_tpu.data.handler import DataHandler
+    from portfoliooptgp_tpu.inference import sample_nuts
+    from portfoliooptgp_tpu.models import icm
+    from portfoliooptgp_tpu.portfolio.frontier import efficient_frontier
+
+    with open(frontier_goldens_path("1y")) as fh:
+        fit = json.load(fh)
+    with tempfile.TemporaryDirectory() as root:
+        names, _ = make_frontier_market(root, *FRONTIER_GRIDS["1y"])
+        dh = DataHandler(data_root=root, **frontier_dates("1y"))
+        columns, X_ref = [], None
+        for asset in names:
+            X, Y, *_ = dh.process_data("Stocks", asset, "d", predict_Y="return",
+                                       normalize=False, normalize_x=False)
+            X_ref = X if X_ref is None else X_ref
+            columns.append(np.asarray(Y).reshape(-1))
+    Ymat = jnp.asarray(np.column_stack(columns))
+    Xs = (X_ref - X_ref.mean()) / (X_ref.std() + 1e-12)
+    Xnew = Xs[-1:] + float(Xs[-1, 0] - Xs[-2, 0])
+    template = icm.ICMGPR.create(km.SquaredExponential.create(), num_outputs=len(names),
+                                 rank=FRONTIER_ARGS["rank"], noise_variance=1e-2)
+    model = jax.tree.unflatten(jax.tree.structure(template),
+                               [jnp.asarray(x) for x in fit["final_leaves"]])
+
+    def logdensity(m):
+        flat, _ = jax.flatten_util.ravel_pytree(m)
+        return -icm.neg_log_marginal_likelihood_chol(m, Xs, Ymat) - 0.5 * jnp.sum(flat**2)
+
+    t0 = time.perf_counter()
+    samples, stats = sample_nuts(
+        logdensity, model, jax.random.PRNGKey(seed),
+        num_warmup=FRONTIER_NUTS["nuts_warmup"], num_samples=FRONTIER_NUTS["nuts_samples"],
+        num_chains=FRONTIER_NUTS["nuts_chains"], max_depth=FRONTIER_NUTS["nuts_max_depth"])
+    flat_samples = jax.tree.map(lambda x: x.reshape((-1,) + x.shape[2:]), samples)
+    draws = int(jax.tree.leaves(flat_samples)[0].shape[0])
+    thin = max(draws // 64, 1)
+    thinned = jax.tree.map(lambda x: x[::thin], flat_samples)
+    mus, Sigmas = jax.vmap(
+        lambda m: icm.posterior_asset_moments_chol(m, Xs, Ymat, Xnew))(thinned)
+    mu = jnp.mean(mus, axis=0)
+    mu_dev = mus - mu
+    Sigma = jnp.mean(Sigmas, axis=0) + mu_dev.T @ mu_dev / mus.shape[0]
+    elapsed = time.perf_counter() - t0
+    f = efficient_frontier(np.asarray(mu), np.asarray(Sigma),
+                           risk_free_rate=FRONTIER_ARGS["risk_free_rate"])
+    return dict(seed=seed, seconds=elapsed, draws=draws,
+                accept=float(np.mean(stats.accept_prob)),
+                leaves=float(np.mean(stats.num_leaves)),
+                mu=np.asarray(mu).tolist(), Sigma=np.asarray(Sigma).tolist(),
+                tangency_weights=np.asarray(f.tangency_weights).tolist(),
+                tangency_return=float(f.tangency_return),
+                tangency_volatility=float(f.tangency_volatility))
+
+
+def run_parts(flag: str, jobs) -> list:
+    """Run `jobs` ([(seed, float32)]) of `flag` as parallel child processes
+    of this script; return their results in order."""
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for seed, f32 in jobs:
+            out = os.path.join(tmp, f"{seed}_{int(f32)}.json")
+            cmd = [sys.executable, os.path.abspath(__file__), flag, str(seed), out]
+            # one core a child: XLA's CPU factorizations run on one thread,
+            # and idle thread pools in parallel children only contend
+            env = dict(os.environ, OMP_NUM_THREADS="1", XLA_FLAGS=(
+                "--xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1"))
+            procs.append((subprocess.Popen(cmd + (["--float32"] if f32 else []), env=env), out))
+        for proc, _ in procs:
+            if proc.wait() != 0:
+                raise RuntimeError(f"{flag} child failed: {proc.args}")
+        results = []
+        for _, out in procs:
+            with open(out) as fh:
+                results.append(json.load(fh))
+    return results
+
+
+def nuts() -> int:
+    from chip_smoke import NUTS_BENCH, NUTS_D, NUTS_GOLDENS, NUTS_N, NUTS_SEEDS
+
+    t0 = time.perf_counter()
+    *runs, f32 = run_parts("--nuts-part", [(s, False) for s in NUTS_SEEDS] + [(0, True)])
+    out = dict(
+        source=("JAX sample_nuts on bench.py's workload (bench.py:225-270), float64 per "
+                "seed and float32 (dense XLA path) with key 0, CPU "
+                "(tools/make_torch_goldens.py --nuts)"),
+        n=NUTS_N, d=NUTS_D, config=NUTS_BENCH, data="chip_smoke.nuts_bench_data",
+        model="GPR(SquaredExponential(1.0, [8.0] * 4), noise 0.1), "
+              "centered_normal_logprior(m0)",
+        seeds=list(NUTS_SEEDS), keys="jax.random.key(seed)", runs=runs, f32=f32,
+        seconds=time.perf_counter() - t0)
+    with open(NUTS_GOLDENS, "w") as fh:
+        json.dump(out, fh, indent=1)
+    for r in runs + [f32]:
+        print(r["seed"], f"{r['seconds']:.1f} s", "accept", r["accept"], "leaves",
+              r["leaves"], "mean", np.round(r["mean"], 4))
+    return 0
+
+
+def frontier_nuts() -> int:
+    from chip_smoke import FRONTIER_NUTS, FRONTIER_NUTS_GOLDENS, FRONTIER_NUTS_SEEDS
+
+    t0 = time.perf_counter()
+    runs = run_parts("--frontier-nuts-part", [(s, False) for s in FRONTIER_NUTS_SEEDS])
+    out = dict(
+        source=("JAX run_frontier_pipeline's NUTS block (frontier_pipeline.py:99-129), "
+                "float64, CPU, from the fit of frontier_1y.json "
+                "(tools/make_torch_goldens.py --frontier 1y --nuts)"),
+        grid="1y", config=FRONTIER_NUTS, seeds=list(FRONTIER_NUTS_SEEDS),
+        keys="jax.random.PRNGKey(seed)", runs=runs, seconds=time.perf_counter() - t0)
+    with open(FRONTIER_NUTS_GOLDENS, "w") as fh:
+        json.dump(out, fh, indent=1)
+    for r in runs:
+        print(r["seed"], f"{r['seconds']:.1f} s", "accept", r["accept"], "leaves",
+              r["leaves"], "tangency", np.round(r["tangency_weights"], 3))
+    return 0
+
+
 def main() -> int:
+    for flag, part in (("--nuts-part", nuts_part), ("--frontier-nuts-part", frontier_nuts_part)):
+        if flag in sys.argv[1:]:
+            i = sys.argv.index(flag)
+            with open(sys.argv[i + 2], "w") as fh:
+                json.dump(part(int(sys.argv[i + 1])), fh)
+            return 0
+    if "--nuts" in sys.argv[1:]:
+        return frontier_nuts() if "--frontier" in sys.argv[1:] else nuts()
     if "--svgp" in sys.argv[1:]:
         return svgp()
     if "--multi-input" in sys.argv[1:]:

@@ -10,8 +10,9 @@ checkout's `portfoliooptgp_tpu_torch` first on the path, so its
 are taken by this checkout's `chip_smoke.stationary_times` at every shape of
 `chip_smoke.STATIONARY_TIMED` (the walk-forward's (5, 77) masked, the
 headline's (128, 256), the weekly and monthly menus' (1, 175) and (1, 40),
-frontier grid A's (20, 262), the NUTS posterior's (8, 512) ARD and a
-two-year walk-forward's (5, 480) masked): the kernel with and without W,
+frontier grid A's (20, 262), the NUTS posterior's (8, 512) ARD, grid A's
+ICM under two NUTS chains (40, 262) and a two-year walk-forward's (5, 480)
+masked): the kernel with and without W,
 its plain version and the torch.linalg chain by CUDA-graph replay, the
 kernel and the chain eager, and the bound; chip_smoke phase 3's headline
 value+grad through the router; and the one-year frontier pipeline (grid A,
