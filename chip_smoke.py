@@ -107,7 +107,27 @@ Phases, each fatal on failure:
      chains, depth 6, 50 + 50 transitions, from JAX's float64 fit with
      maxiter 0, where the golden runs start) against
      tests/goldens_torch/frontier_1y_nuts.json (`compare_frontier_nuts`),
-     with its stationary-kernel launches at batch C·P = 40.
+     with its stationary-kernel launches at batch C·P = 40;
+ 12. the shell and the long windows (`phase_cli`): (a) `python -m
+     portfoliooptgp_tpu_torch portfolio` (run as `python -m` runs it, in a
+     child process, `CLI_CHILD`) on `make_long_market` with a three-year
+     train window (760 rows, padded N = 768: the walk-forward's blocked
+     tier, the panel kernel at B = 5), its `--metrics` JSONL held against
+     tests/goldens_torch/cli_long_window*.json (the JAX CLI's float64 and
+     float32 runs, written by tools/make_torch_goldens.py --cli) by
+     `compare_cli`; (b) `multi-input --step 4` on one asset with a
+     five-year window (1270 rows, padded N = 1280: the blocked_hinv tier,
+     the triangular-inverse kernel), its printed next-day means held
+     against the same goldens (`compare_cli_means`); each child's tier
+     calls, launch counts and device busy share; the panel kernel (N =
+     768) and the triangular-inverse kernel (padded N = 1280) on masked
+     walk-forward systems and their factors (σ² = 1e-5 beside the identity
+     rows, B = 5 and 20) against their plain versions, and both kernels
+     timed at these shapes; (c) tools/smoke_tpu.py's two CG checks (`nll_cg` at N = 2048,
+     128 probes and 48 Lanczos steps; the rank-256 PCG with split SLQ, 64
+     probes and 8 steps) against the dense torch.linalg value+grad, with
+     their CG iteration counts; (d) `print-config` and `--help` through
+     `python -m portfoliooptgp_tpu_torch`.
 Then it prints the card's name and power limit, one JSON line describing
 every kernel, and the last line {"ok": true, "device": {...}}.
 
@@ -305,6 +325,95 @@ MULTI_INPUT_MAXITER = 200
 def multi_input_goldens_path(float32: bool = False) -> str:
     return os.path.join(REPO, "tests", "goldens_torch",
                         f"multi_input_poly{'_f32' if float32 else ''}.json")
+
+
+CLI_MARKET = ("2019-07-01", "2024-05-31")  # business days of phase 12's market
+# train_start_date of each window: 760 and 1270 training rows before the
+# test week, so the walk-forward's padded N is 768 (blocked) and 1280 (hinv)
+CLI_WINDOWS = {"3y": "2021-06-14", "5y": "2019-07-01"}
+CLI_TICKER = "ALFA"  # the five-year multi-input run's asset
+
+
+def make_long_market(root: str, seed: int = 7) -> str:
+    """benchmarks/bench_portfolio_e2e.make_market over CLI_MARKET instead of
+    2024-02-01..2024-05-31: the same assets, covariates, loadings and draw
+    order on the longer business-day range."""
+    import pandas as pd
+
+    from benchmarks.bench_portfolio_e2e import ASSETS, _write_eod
+
+    rng = np.random.default_rng(seed)
+    days = pd.bdate_range(*CLI_MARKET)
+    n = len(days)
+    drv1 = np.cumsum(0.010 * rng.normal(size=n))
+    drv2 = np.cumsum(0.008 * rng.normal(size=n))
+
+    def series(b1, b2, idio):
+        return 100 * np.exp(b1 * drv1 + b2 * drv2 + np.cumsum(idio * rng.normal(size=n)))
+
+    for i, t in enumerate(ASSETS):
+        _write_eod(os.path.join(root, "Stocks", t), f"{t}_us_d.csv", days,
+                   series(0.9 + 0.05 * i, 0.4 - 0.05 * i, 0.004))
+    for sub, name, b1, b2, idio in (("Commodities", "Brent_Oil", 1.0, 0.0, 0.003),
+                                    ("Commodities", "XAU_USD", 0.0, 1.0, 0.003),
+                                    ("Stocks/Index", "SP500", 0.8, 0.5, 0.002),
+                                    ("Stocks/Index", "NasDaq100", 0.9, 0.3, 0.002),
+                                    ("Stocks", "MACR", 0.5, 0.8, 0.003)):
+        _write_eod(os.path.join(root, *sub.split("/"), name), f"{name}_us_d.csv", days,
+                   series(b1, b2, idio))
+    _write_eod(os.path.join(root, "Stocks", "RNDX"), "RNDX_us_d.csv", days,
+               100 * np.exp(np.cumsum(0.01 * rng.normal(size=n))))
+    return root
+
+
+def cli_config(window: str) -> dict:
+    """The RunConfig JSON of phase 12's CLI runs: the defaults but for the
+    train window, which starts at CLI_WINDOWS[window]."""
+    return {"data": {"train_start_date": CLI_WINDOWS[window], "train_end_date": "2024-05-10",
+                     "test_start_date": "2024-05-13", "test_end_date": "2024-05-17"}}
+
+
+# The walk-forward's float32 large-N branches at test size, held against
+# the JAX package's float64 and float32 runs (tests/goldens_torch/
+# walk_forward_long.json, tools/make_torch_goldens.py --walk-forward):
+# case → (N, series seed, time span, kernel); padded N 384 and 640 run the
+# blocked tier (the first only because its kernel is not fusable), 1152 the
+# blocked_hinv tier. Three days, one restart, 30 iterations (WALK_LONG_KW).
+WALK_LONG_CASES = {
+    "blocked_unfusable_288": (288, 6, 10.0, "unfusable"),
+    "blocked_composite_560": (560, 6, 20.0, "composite"),
+    "hinv_composite_1100": (1100, 7, 40.0, "composite"),
+}
+WALK_LONG_KW = dict(n_days=3, maxiter=30)
+WALK_LONG_GOLDENS = os.path.join(REPO, "tests", "goldens_torch", "walk_forward_long.json")
+
+
+def long_series(n, seed, span):
+    """(X (n, 2), Y (n, 1)): a noisy sine of t on [0, span] and t z-scored,
+    as the data layer scales the day index. (A raw index up to 40 would
+    lose ~1e-2 of each nearby distance to the float32 expansion ‖x‖² +
+    ‖x'‖² − 2xx' that the stationary kernels build K from, in either
+    package.)"""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, span, n)
+    X = np.column_stack([np.sin(t) + 0.1 * rng.normal(size=n), (t - t.mean()) / t.std()])
+    Y = (np.sin(t) + 0.08 * rng.normal(size=n))[:, None]
+    return X, Y
+
+
+def walk_long_kernel(pkg, name, **o):
+    """WALK_LONG_CASES' kernels in either package (`pkg` its `kernels`):
+    'unfusable' is (SE + Matern12) × Matern32, which no fused tier takes;
+    'composite' is composite_kernel(2), Matern12 × Matern12."""
+    if name == "unfusable":
+        return ((pkg.SquaredExponential.create(**o) + pkg.Matern12.create(**o))
+                * pkg.Matern32.create(**o))
+    return pkg.composite_kernel(2, **o)
+
+
+def cli_goldens_path(float32: bool = False) -> str:
+    return os.path.join(REPO, "tests", "goldens_torch",
+                        f"cli_long_window{'_f32' if float32 else ''}.json")
 
 
 def multi_input_pairs():
@@ -3401,6 +3510,395 @@ def phase_nuts():
                 max_abs_err=err2, max_abs_err_single=err, runs=runs)
 
 
+# The CLI as `python -m portfoliooptgp_tpu_torch` runs it (runpy.run_module
+# with run_name="__main__"), in a child process on the card: its launch
+# counters start at 0 there and are read at its end, its calls of the two
+# large-N tier functions are recorded with their shapes, and its CUDA
+# activity is profiled for the device's busy share. The report goes to the
+# JSON file named by argv[1]; argv[2:] are the command's arguments.
+CLI_CHILD = r"""
+import json, runpy, sys, time
+import torch
+from torch.profiler import ProfilerActivity, profile
+from portfoliooptgp_tpu_torch.ops import blocked_nll, nll, stationary_nll, svgp_gram
+
+out, sys.argv = sys.argv[1], ["portfoliooptgp_tpu_torch"] + sys.argv[2:]
+tiers = []
+for name in ("batched_nll_blocked", "batched_nll_hinv"):
+    def spy(K, y, noise, real=getattr(blocked_nll, name), name=name):
+        tiers.append([name, list(K.shape)])
+        return real(K, y, noise)
+    setattr(blocked_nll, name, spy)
+code, t0 = 0, time.perf_counter()
+try:
+    with profile(activities=[ProfilerActivity.CUDA if torch.cuda.is_available()
+                             else ProfilerActivity.CPU]) as prof:
+        try:
+            runpy.run_module("portfoliooptgp_tpu_torch", run_name="__main__", alter_sys=True)
+        except SystemExit as e:
+            code = e.code or 0
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+finally:
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns()
+    launches = {**stationary_nll.LAUNCHES, **blocked_nll.LAUNCHES, **nll.LAUNCHES,
+                **svgp_gram.LAUNCHES}
+    with open(out, "w") as fh:
+        json.dump(dict(code=code, wall_s=wall, launches=launches, tiers=tiers,
+                       device_s=sum(by_name.values()) / 1e9,
+                       panel_s=sum(t for n, t in by_name.items() if "blocked_panel" in n) / 1e9,
+                       trinv_s=sum(t for n, t in by_name.items() if "trinv" in n) / 1e9), fh)
+"""
+CLI_LIMITS = {"cumulative_return": 0.02, "sharpe_ratio": 1.0}  # compare_to_goldens' own
+CLI_SPREAD = 4.0  # ... widened to this many times JAX's own float32 spread
+CLI_TIMEOUT_S = 300
+
+
+def run_cli(args, timeout=CLI_TIMEOUT_S):
+    """(report, stdout) of one CLI command in a child process (CLI_CHILD);
+    raises if it fails."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "report.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", CLI_CHILD, out, *args], cwd=REPO,
+                              capture_output=True, text=True, timeout=timeout)
+        elapsed = time.perf_counter() - t0
+        if proc.returncode != 0 or not os.path.exists(out):
+            raise RuntimeError(f"CLI {args[0]} failed (exit {proc.returncode}):\n"
+                               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        with open(out) as fh:
+            report = json.load(fh)
+    report["process_s"] = elapsed
+    return report, proc.stdout
+
+
+def read_metrics(path) -> dict:
+    """{strategy: {metric: value}} of a `--metrics` JSONL file."""
+    out = {}
+    with open(path) as fh:
+        for line in fh:
+            rec = json.loads(line)
+            out.setdefault(rec["strategy"], {})[rec["metric"]] = rec["value"]
+    return out
+
+
+def compare_cli(strategies, goldens, goldens32):
+    """Failures of the `portfolio` command's strategies against the JAX
+    CLI's float64 run: each metric within its CLI_LIMITS entry, or within
+    CLI_SPREAD times JAX's own float32-to-float64 distance where that is
+    larger. Returns (failures, {strategy.metric: (distance, limit)})."""
+    bad, seen = [], {}
+    for strat, g in goldens.items():
+        for metric, limit in CLI_LIMITS.items():
+            d = abs(strategies[strat][metric] - g[metric])
+            lim = max(limit, CLI_SPREAD * abs(goldens32[strat][metric] - g[metric]))
+            seen[f"{strat}.{metric}"] = (d, lim)
+            if not d <= lim:
+                bad.append(f"{strat}.{metric}: {strategies[strat][metric]:.6g} vs "
+                           f"{g[metric]:.6g} (limit {lim:.3g})")
+    return bad, seen
+
+
+def parse_tail(stdout, label):
+    """The array printed after `label` by the multi-input command."""
+    import re
+
+    m = re.search(re.escape(label) + r"\s*\[([^\]]*)\]", stdout)
+    if m is None:
+        raise AssertionError(f"no '{label}' line in the CLI's output")
+    return np.array([float(x) for x in m.group(1).split()])
+
+
+def compare_cli_means(f_mean, golden, golden32):
+    """(distance, limit) of next-day means against the JAX CLI's float64
+    ones, as fractions of their largest |value|: the limit is
+    MI_FIT_MEAN_ATOL, or CLI_SPREAD times JAX's own float32 distance where
+    that is larger."""
+    g, g32 = np.asarray(golden), np.asarray(golden32)
+    scale = np.max(np.abs(g))
+    dist = float(np.max(np.abs(np.asarray(f_mean) - g)) / scale)
+    return dist, max(MI_FIT_MEAN_ATOL, CLI_SPREAD * float(np.max(np.abs(g32 - g)) / scale))
+
+
+def masked_walk_system(B, N, noise=1e-5, days=5, seed=0, device=DEVICE):
+    """(B, N, N) float32 masked walk-forward systems, as
+    pipelines/walk_forward.masked_system builds them: a product of two
+    Matern12 kernels (a covariate walk and time) on N rows, B/days restarts
+    of `days` days (day d keeps the first N − days + d rows), σ² = `noise`
+    on the kept diagonal and identity rows and columns outside it."""
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(np.cumsum(rng.normal(size=N)) / np.sqrt(N), dtype=torch.float64)
+    t = torch.linspace(-1.7, 1.7, N, dtype=torch.float64)
+    K = (torch.exp(-torch.abs(x[:, None] - x[None, :]))
+         * torch.exp(-torch.abs(t[:, None] - t[None, :]) / 0.5))
+    keep = torch.arange(N)[None, :] < (N - days + torch.arange(days))[:, None]
+    m = keep.repeat_interleave(B // days, dim=0).to(torch.float64)
+    Ks = K * (m[:, :, None] * m[:, None, :]) + torch.diag_embed(m * noise + (1.0 - m))
+    return Ks.to(device=device, dtype=torch.float32)
+
+
+def check_walk_panel(B, N=768):
+    """The panel kernel against its plain version at every panel height of
+    masked walk-forward systems (B, N) with σ² = 1e-5: L within 3e-3 of max
+    |L|, Σ log diag at rtol 3e-3 (tests/test_torch_cuda.py's panel
+    tolerances). Returns the largest |L| difference."""
+    from portfoliooptgp_tpu_torch.ops import blocked_nll as bn
+
+    Ks = masked_walk_system(B, N)
+    worst = 0.0
+    for nt in range(N, 0, -128):
+        panel = Ks[:, N - nt:, N - nt:N - nt + min(128, nt)]
+        Lk, ldk = bn.factor_panel_cuda(panel)
+        Lp, ldp = bn.factor_panel_plain(panel)
+        scale = float(Lp.abs().max())
+        err = float((Lk - Lp).abs().max())
+        lerr = float(((ldk - ldp).abs() / ldp.abs()).max())
+        if not (err <= 3e-3 * scale and lerr <= 3e-3):
+            raise AssertionError(f"panel B={B} nt={nt} masked: L err {err:.3e} (max |L| "
+                                 f"{scale:.3g}), logdet rel err {lerr:.3e}")
+        worst = max(worst, err)
+    print(f"check panel masked walk-forward B={B} N={N} sigma2=1e-5: max |dL| {worst:.3e} over "
+          f"{len(range(N, 0, -128))} heights", flush=True)
+    return worst
+
+
+def check_walk_trinv(B, Np=1280):
+    """The triangular-inverse kernel against its plain version on the
+    factors of masked walk-forward systems (B, Np) with σ² = 1e-5, factored
+    by linalg.cholesky as batched_nll_hinv factors them: B·Np/128 blocks,
+    identity blocks and blocks across the mask's edge among them, held by
+    check_trinv_equal. Returns the largest |W| difference."""
+    from portfoliooptgp_tpu_torch.ops import linalg, nll
+
+    L = linalg.cholesky(masked_walk_system(B, Np))
+    Wk = nll.triangular_inverse_cuda(L)
+    Wp = nll.triangular_inverse_plain(L)
+    err = check_trinv_equal(f"trinv masked walk-forward B={B} Np={Np}", Wk, Wp)
+    print(f"check trinv masked walk-forward B={B} Np={Np} sigma2=1e-5 ({B * Np // 128} "
+          f"blocks): max |dW| {err:.3e} (max |W| {float(Wp.abs().max()):.3g})", flush=True)
+    return err
+
+
+def walk_panel_times(B=5, N=768):
+    """The panel kernel on a masked walk-forward system at (B, N), at each
+    panel height of the blocked factor, by graph replay, with its plain
+    version at the same heights, torch.linalg.cholesky_ex of the whole
+    system and the bounds, each summed over the panels."""
+    from portfoliooptgp_tpu_torch.ops import blocked_nll as bn
+
+    Ks = masked_walk_system(B, N, noise=1e-3)
+    heights = list(range(N, 0, -128))
+
+    def panel(nt):
+        return Ks[:, N - nt:, N - nt:N - nt + min(128, nt)]
+
+    with torch.no_grad():
+        ms = {nt: graph_ms(lambda nt=nt: bn.factor_panel_cuda(panel(nt))) for nt in heights}
+        plain = sum(graph_ms(lambda nt=nt: bn.factor_panel_plain(panel(nt))) for nt in heights)
+        lib = graph_ms(lambda: torch.linalg.cholesky_ex(Ks))
+        whole = graph_ms(lambda: bn.blocked_cholesky(Ks), reps=20)
+    bound = sum(panel_bound_ms(nt, B)[0] for nt in heights)
+    return dict(ms=sum(ms.values()), plain_ms=plain, library_ms=lib, bound_ms=bound,
+                bound_by=panel_bound_ms(N, B)[1], by_height=ms, whole_ms=whole,
+                first_ms=ms[N], first_bound_ms=panel_bound_ms(N, B)[0])
+
+
+def walk_trinv_times(B=5, Np=1280):
+    """The triangular-inverse kernel on the diagonal blocks of B factors of
+    masked walk-forward systems at padded N = Np, by graph replay, with its
+    plain version, solve_triangular(L_blocks, I) and its bound."""
+    from portfoliooptgp_tpu_torch.ops import nll
+
+    L = torch.linalg.cholesky(masked_walk_system(B, Np, noise=1e-3))
+    P = Np // 128
+    blocks = torch.stack([L[:, p * 128:(p + 1) * 128, p * 128:(p + 1) * 128] for p in range(P)],
+                         dim=1).reshape(B * P, 128, 128).contiguous()
+    eye = torch.eye(128, device=DEVICE).expand(B * P, 128, 128)
+    with torch.no_grad():
+        k = graph_ms(lambda: nll.triangular_inverse_cuda(L))
+        plain = graph_ms(lambda: nll.triangular_inverse_plain(L), reps=5)
+        lib = graph_ms(lambda: torch.linalg.solve_triangular(blocks, eye, upper=False))
+    bound, bound_by = trinv_bound_ms(B * P)
+    return dict(ms=k, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=bound_by,
+                blocks=B * P)
+
+
+CG_N = 2048
+CG_VALUE_RTOL = 2e-3  # tools/smoke_tpu.py's CG checks
+CG_CHECKS = {  # name → (num_probes, num_lanczos, precond_rank, gradient tolerance)
+    "cg_slq": (128, 48, 0, 1e-1),
+    "pcg_split_slq_rank256": (64, 8, 256, 2e-1),
+}
+
+
+def cg_problem(device=DEVICE, dtype=torch.float32):
+    """tools/smoke_tpu.py's CG problem: N = 2048 day indices, SE with
+    (variance, lengthscale, noise) = (1.3, 30.0, 0.1), Y ~ N(0, 1)."""
+    x = torch.arange(CG_N, dtype=dtype, device=device)
+    d2 = (x[:, None] - x[None, :]) ** 2
+    Y = torch.tensor(np.random.default_rng(0).normal(size=(CG_N, 1)), dtype=dtype, device=device)
+    return d2, Y, (1.3, 30.0, 0.1)
+
+
+def cg_value_grad(check, d2, Y, p0, seed=7):
+    """(value, gradient in (variance, lengthscale, noise), CG iterations) of
+    nll_cg on smoke_tpu's problem, probes from a generator seeded `seed`;
+    check None gives the dense torch.linalg NLL instead."""
+    from portfoliooptgp_tpu_torch.ops import iterative
+
+    p = [torch.tensor(v, dtype=Y.dtype, device=Y.device, requires_grad=True) for v in p0]
+    K = p[0] * torch.exp(-0.5 * d2 / (p[1] * p[1]))
+    iters = None
+    if check is None:
+        L = torch.linalg.cholesky(K + p[2] * torch.eye(CG_N, dtype=Y.dtype, device=Y.device))
+        a = torch.linalg.solve_triangular(L, Y, upper=False)
+        value = (0.5 * torch.sum(a * a) + torch.sum(torch.log(torch.diagonal(L)))
+                 + 0.5 * CG_N * float(np.log(2 * np.pi)))
+    else:
+        probes, steps, rank, _ = CG_CHECKS[check]
+        gen = torch.Generator(device=Y.device).manual_seed(seed)
+        value, iters = iterative.nll_cg(K, Y, p[2], gen, probes, steps, 1e-6, rank,
+                                        with_iters=True)
+    grads = torch.autograd.grad(value, p)
+    return float(value.detach()), np.array([float(g) for g in grads]), iters
+
+
+def phase_cli():
+    """Phase 12, the shell and the long windows: (a) the CLI's `portfolio`
+    command on the three-year window (padded N = 768: the walk-forward's
+    blocked tier, the panel kernel at B = 5) against the JAX CLI's goldens;
+    (b) `multi-input --step 4` on the five-year window (padded N = 1280:
+    the blocked_hinv tier, the triangular-inverse kernel); (c)
+    tools/smoke_tpu.py's two CG checks at N = 2048 against the dense
+    value+grad; (d) `print-config` and `--help` through `python -m`."""
+    from benchmarks.bench_portfolio_e2e import ASSETS, FEATURES
+
+    with open(cli_goldens_path()) as fh:
+        g64 = json.load(fh)["runs"]
+    with open(cli_goldens_path(True)) as fh:
+        g32 = json.load(fh)["runs"]
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        make_long_market(root)
+        for window in CLI_WINDOWS:
+            with open(os.path.join(root, f"{window}.json"), "w") as fh:
+                json.dump(cli_config(window), fh)
+        common = ["--data-root", root, "--features", *FEATURES]
+
+        # (a) portfolio, three-year window
+        metrics = os.path.join(root, "metrics.jsonl")
+        rep, _ = run_cli(["portfolio", "--config", os.path.join(root, "3y.json"),
+                          "--assets", *ASSETS, *common, "--metrics", metrics])
+        n = g64["3y"]["walks"][0]["n"]
+        blocked = [s for name, s in rep["tiers"] if name == "batched_nll_blocked"]
+        if (len(blocked) == 0 or any(s[0] != 5 for s in blocked)
+                or any(name != "batched_nll_blocked" for name, _ in rep["tiers"])):
+            raise AssertionError(f"portfolio 3y: tier calls {rep['tiers'][:5]}..., not the "
+                                 "blocked tier at B = 5")
+        if rep["launches"]["blocked_panel"] == 0:
+            raise AssertionError("portfolio 3y: the panel kernel never launched")
+        bad, seen = compare_cli(read_metrics(metrics), g64["3y"]["strategies"],
+                                g32["3y"]["strategies"])
+        print(f"phase 12a CLI portfolio 3y f32: {rep['process_s']:.2f} s (the command "
+              f"{rep['wall_s']:.2f} s), N={n} (padded {n + (-n) % 128}), blocked tier calls "
+              f"{len(blocked)} at {blocked[0]}, launches "
+              f"{json.dumps({k: v for k, v in rep['launches'].items() if v})}; device busy "
+              f"{rep['device_s']:.3f} s ({100 * rep['device_s'] / rep['wall_s']:.1f}%), the "
+              f"panel kernel {rep['panel_s']:.4f} s", flush=True)
+        print("  distance / limit: " + ", ".join(f"{k} {d:.4g} / {lim:.4g}"
+                                                  for k, (d, lim) in seen.items()), flush=True)
+        if bad:
+            raise AssertionError(f"portfolio 3y does not match the JAX CLI: {bad}")
+        out["3y"] = rep
+
+        # (b) multi-input step 4, five-year window
+        rep, stdout = run_cli(["multi-input", "--config", os.path.join(root, "5y.json"),
+                               "--ticker", CLI_TICKER, "--step", "4", *common])
+        n = g64["5y"]["walks"][0]["n"]
+        hinv = [s for name, s in rep["tiers"] if name == "batched_nll_hinv"]
+        if not hinv or any(name != "batched_nll_hinv" for name, _ in rep["tiers"]):
+            raise AssertionError(f"multi-input 5y: tier calls {rep['tiers'][:5]}..., not the "
+                                 "blocked_hinv tier")
+        if rep["launches"]["triangular_inverse"] == 0:
+            raise AssertionError("multi-input 5y: the triangular-inverse kernel never launched")
+        f_mean = parse_tail(stdout, "f_mean tail:")
+        dist, lim = compare_cli_means(f_mean, g64["5y"]["walks"][0]["f_mean_tail"],
+                                      g32["5y"]["walks"][0]["f_mean_tail"])
+        print(f"phase 12b CLI multi-input --step 4 5y f32: {rep['process_s']:.2f} s (the command "
+              f"{rep['wall_s']:.2f} s), N={n} (padded {n + (-n) % 128}), blocked_hinv calls "
+              f"{len(hinv)} at {hinv[0]}, launches "
+              f"{json.dumps({k: v for k, v in rep['launches'].items() if v})}; device busy "
+              f"{rep['device_s']:.3f} s ({100 * rep['device_s'] / rep['wall_s']:.1f}%), trinv "
+              f"{rep['trinv_s']:.4f} s; next-day means {np.round(f_mean, 6).tolist()}, distance "
+              f"{dist:.4g} of max |mean| (limit {lim:.4g})", flush=True)
+        if not dist <= lim:
+            raise AssertionError(f"multi-input 5y means do not match the JAX CLI: {dist} > {lim}")
+        out["5y"] = rep
+
+    # the two kernels on masked walk-forward systems: held against their
+    # plain versions (σ² = 1e-5 beside the identity rows, B = 5 and 20),
+    # then timed at the shapes of (a) and (b)
+    out["panel_err"] = max(check_walk_panel(B) for B in (5, 20))
+    out["trinv_err"] = max(check_walk_trinv(B) for B in (5, 20))
+    out["panel"], out["trinv"] = walk_panel_times(), walk_trinv_times()
+    pt, tt = out["panel"], out["trinv"]
+    print(f"phase 12 panel kernel (5, 768) masked, 6 panels (graph replay): {pt['ms']:.4f} ms "
+          f"(first panel {pt['first_ms']:.4f}, bound {pt['first_bound_ms']:.6f}), bounds summed "
+          f"{pt['bound_ms']:.6f} ms ({pt['bound_by']}); plain, the 6 panels {pt['plain_ms']:.4f} "
+          f"ms; torch.linalg.cholesky_ex (5, 768, 768) {pt['library_ms']:.4f} ms; the whole "
+          f"blocked factor {pt['whole_ms']:.4f} ms; by height " + json.dumps(
+              {nt: round(ms, 4) for nt, ms in pt["by_height"].items()}), flush=True)
+    print(f"phase 12 trinv {tt['blocks']} blocks (B = 5, padded N = 1280; graph replay): "
+          f"{tt['ms']:.4f} ms, plain {tt['plain_ms']:.4f} ms, solve_triangular(L_blocks, I) "
+          f"{tt['library_ms']:.4f} ms, bound {tt['bound_ms']:.6f} ms ({tt['bound_by']})",
+          flush=True)
+
+    # (c) CG on the card: smoke_tpu's two checks against the dense value+grad
+    d2, Y, p0 = cg_problem()
+    vd, gd, _ = cg_value_grad(None, d2, Y, p0)
+    out["cg"] = {}
+    for check, (_, _, _, gtol) in CG_CHECKS.items():
+        for _ in range(2):  # the first call warms the library kernels; the second is timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vc, gc, iters = cg_value_grad(check, d2, Y, p0)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+        verr = abs(vc - vd) / abs(vd)
+        gerr = float(np.max(np.abs(gc - gd) / np.maximum(np.abs(gd), 1.0)))
+        print(f"phase 12c {check} N={CG_N} f32: value {vc:.6g} (dense {vd:.6g}, rel err "
+              f"{verr:.3e}, limit {CG_VALUE_RTOL}), gradient {np.round(gc, 5).tolist()} (dense "
+              f"{np.round(gd, 5).tolist()}, normalized err {gerr:.3e}, limit {gtol}); "
+              f"{iters} CG iterations; {ms:.1f} ms for the value+grad (its second call)",
+              flush=True)
+        if not (np.isfinite(vc) and verr <= CG_VALUE_RTOL and gerr <= gtol):
+            raise AssertionError(f"{check}: value err {verr}, gradient err {gerr}")
+        out["cg"][check] = dict(iters=iters, value_err=verr, grad_err=gerr, ms=ms)
+
+    # (d) the entry point resolves on the machine
+    printed = {}
+    for args in (["print-config"], ["--help"]):
+        proc = subprocess.run([sys.executable, "-m", "portfoliooptgp_tpu_torch", *args],
+                              cwd=REPO, capture_output=True, text=True, timeout=120)
+        if proc.returncode != 0:
+            raise AssertionError(f"python -m portfoliooptgp_tpu_torch {args[0]} failed: "
+                                 f"{proc.stderr[-2000:]}")
+        printed[args[0]] = proc.stdout
+    if json.loads(printed["print-config"])["train"]["maxiter"] != 100 or not all(
+            cmd in printed["--help"] for cmd in ("print-config", "single-asset", "multi-input",
+                                                 "portfolio", "svgp", "frontier", "nuts")):
+        raise AssertionError("print-config or --help does not print what the JAX CLI does")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 12d python -m portfoliooptgp_tpu_torch print-config and --help: exit 0; "
+          f"phase 12 {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
@@ -3433,6 +3931,8 @@ def main() -> int:
     gram = phase_svgp_checks()
     svgp = phase_svgp()
     nuts = phase_nuts()
+    cli = phase_cli()
+    errs["blocked_panel"] = max(errs["blocked_panel"], cli["panel_err"])
     errs["stationary_nll_general"] = max(errs["stationary_nll_general"], nuts["max_abs_err"])
     errs["stationary_nll"] = max(errs["stationary_nll"], nuts["max_abs_err_single"])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3467,13 +3967,19 @@ def main() -> int:
              replaces="portfoliooptgp_tpu/ops/pallas/blocked_nll.py:70",
              launches=sa["launches"], max_abs_err=errs["blocked_panel"],
              ms=sa["ms"], plain_ms=sa["plain_ms"], bound_ms=sa["bound_ms"],
-             bound_by=sa["bound_by"], library_ms=sa["library_ms"], eager_ms=sa["eager_ms"]),
+             bound_by=sa["bound_by"], library_ms=sa["library_ms"], eager_ms=sa["eager_ms"],
+             launches_cli_3y=cli["3y"]["launches"]["blocked_panel"],
+             at_5x768={k: cli["panel"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms")}),
         dict(name="triangular_inverse", route="cuda",
              source="portfoliooptgp_tpu_torch/csrc/trinv.cu",
              replaces="portfoliooptgp_tpu/ops/pallas/nll.py:357",
-             launches=front["launches"], max_abs_err=hinv["max_abs_err"],
+             launches=front["launches"], max_abs_err=max(hinv["max_abs_err"], cli["trinv_err"]),
              ms=hinv["ms"], plain_ms=hinv["plain_ms"], bound_ms=hinv["bound_ms"],
-             bound_by=hinv["bound_by"], library_ms=hinv["library_ms"], eager_ms=hinv["eager_ms"]),
+             bound_by=hinv["bound_by"], library_ms=hinv["library_ms"], eager_ms=hinv["eager_ms"],
+             launches_cli_5y=cli["5y"]["launches"]["triangular_inverse"],
+             at_50_blocks={k: cli["trinv"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                       "bound_by", "library_ms")}),
     ]
     for name, with_w, line in (("dense_nll", False, 135), ("dense_nll_inv", True, 151)):
         tag = "inv" if with_w else "value"

@@ -113,6 +113,27 @@ def predict_y(model: GPR, X, Y, Xnew, cache: Optional[GPRPosterior] = None):
     return model.likelihood.predict_mean_and_var(mean, var)
 
 
+def neg_log_marginal_likelihood_cg(model: GPR, X, Y, generator=None, num_probes: int = 16,
+                                   num_lanczos: int = 32, cg_tol: float = 1e-4,
+                                   precond_rank: int = 0, *, probes=None):
+    """Matrix-free NLL (1,) of one model (batch 1) for large N: the CG
+    quad term and the SLQ log-det of ops/iterative.nll_cg, whose probes
+    come from `generator` (a `torch.Generator`) or are given (`probes`).
+
+    Its log-det and gradients are estimators, not values, so it stays out
+    of `batched_neg_log_marginal_likelihood`'s tiers: the caller opts in,
+    past the hinv window or with optimizers that average gradient noise.
+    precond_rank > 0 adds the pivoted-Cholesky preconditioner and the
+    exact split log-det (fewer CG iterations, a tighter estimate)."""
+    from portfoliooptgp_tpu_torch.ops import iterative
+
+    if batch_size(model) != 1:
+        raise ValueError(f"the CG NLL takes one model, got a batch of {batch_size(model)}")
+    return iterative.nll_cg(model.kernel.K(X)[0], _err(model, X, Y)[0],
+                            model.likelihood.variance[0], generator, num_probes, num_lanczos,
+                            cg_tol, precond_rank, probes=probes)[None]
+
+
 # -- the fused tiers --------------------------------------------------------
 
 class FusedSpec(NamedTuple):

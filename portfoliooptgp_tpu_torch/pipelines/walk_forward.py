@@ -8,11 +8,12 @@ row of one batched training problem over the full design matrix:
 so the whole walk-forward trains as one batched L-BFGS
 (train/batched_lbfgs.py) and predicts all next-day targets in one batched
 solve. In float32 the loss is the masked fused NLL kernel
-(ops/stationary_nll.py) for a fusable kernel, else, at padded N ≤ 256,
-the dense NLL kernel (ops/nll.py) on the masked system; in float64 it is
-the plain masked NLL, as in the JAX package. The float32 blocked and
-blocked_hinv branches have not been held against the JAX package's and
-raise NotImplementedError.
+(ops/stationary_nll.py) for a fusable kernel at padded N ≤ 512; else the
+masked system goes through the dense NLL kernel (ops/nll.py) at padded
+N ≤ 256, the blocked tier's panel kernel (ops/blocked_nll.py) at padded
+N ≤ 1024, or the hinv tier's triangular-inverse kernel up to padded
+N = 4096 (and D·R·N² ≤ HINV_MAX_ELEMS). In float64, and past those
+windows, it is the plain masked NLL, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -115,7 +116,7 @@ def batched_walk_forward(
     if mesh is not None:
         raise NotImplementedError(
             "restart-axis sharding over a mesh is not ported yet: ROADMAP.md "
-            "queue 1: parallel/")
+            "queue 1 item 8 (parallel/)")
     dev = resolve_device(device)
     X_full = as_tensor(X_full, dev, dtype)
     Y_full = as_tensor(Y_full, dev, dtype)
@@ -173,16 +174,19 @@ def batched_walk_forward(
                                       torch.zeros_like(n_eff_dr))
             # the kernel's 2π constant uses the full N; restate it for n_eff
             return nll - 0.5 * (n_full - n_eff_dr) * LOG_2PI
-    elif f32 and blocked_mod.blocked_nll_preferred(n_full):
-        raise NotImplementedError(
-            "the walk-forward's float32 blocked branch is not held against the JAX "
-            "package yet: ROADMAP.md queue 1: the walk-forward's float32 blocked and "
-            "blocked_hinv branches")
-    elif f32 and blocked_mod.hinv_nll_preferred(n_full, D * R):
-        raise NotImplementedError(
-            "the walk-forward's float32 blocked_hinv branch is not held against the JAX "
-            "package yet: ROADMAP.md queue 1: the walk-forward's float32 blocked and "
-            "blocked_hinv branches")
+    elif f32 and (blocked_mod.blocked_nll_preferred(n_full)
+                  or blocked_mod.hinv_nll_preferred(n_full, D * R)):
+        # large-N masked rows through the blocked tiers (the panel kernel,
+        # or the hinv tier's triangular-inverse kernel), at zero added noise
+        # as above; the same tier windows as the router
+        tier_fn = (blocked_mod.batched_nll_blocked
+                   if blocked_mod.blocked_nll_preferred(n_full)
+                   else blocked_mod.batched_nll_hinv)  # gated on D·R above
+
+        def batched_loss(ms):
+            Kb, errb = masked_system(ms, X_full, Y_full, masks_dr)
+            nll = tier_fn(Kb, errb[:, :, 0], torch.zeros_like(n_eff_dr))
+            return nll - 0.5 * (n_full - n_eff_dr) * LOG_2PI
     else:
         def batched_loss(ms):
             return masked_nll(ms, X_full, Y_full, masks_dr)

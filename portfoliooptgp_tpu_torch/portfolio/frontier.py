@@ -2,11 +2,10 @@
 target returns, and the tangency (maximum-Sharpe) portfolio.
 
 Port of portfoliooptgp_tpu/portfolio/frontier.py (`Frontier`,
-`efficient_frontier`). Each point is one simplex solve with a return floor
-(portfolio/solver.minimize_simplex). The JAX package vmaps the 32 solves;
-here they are a Python loop, each solve independent of the others.
-`plot_frontier` waits for the plotting module (ROADMAP.md queue 1:
-shell).
+`efficient_frontier`, `plot_frontier`). Each point is one simplex solve
+with a return floor (portfolio/solver.minimize_simplex). The JAX package
+vmaps the 32 solves; here they are a Python loop, each solve independent
+of the others.
 """
 
 from __future__ import annotations
@@ -59,3 +58,32 @@ def efficient_frontier(mu, Sigma, risk_free_rate=0.0, n_points: int = 32, *,
         tangency_return=float(mu @ tan),
         tangency_volatility=float(torch.sqrt(torch.clamp_min(tan @ Sigma @ tan, 0.0))),
     )
+
+
+def plot_frontier(frontier: Frontier, risk_free_rate=0.0, filename=None):
+    """Frontier + capital-allocation line + tangency point (the real version
+    of efficient.py's illustration), matplotlib with the Agg backend."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(8, 5))
+    ax.plot(frontier.volatilities, frontier.returns, "-o", ms=3,
+            color="#0065BD", label="efficient frontier")
+    ax.scatter([frontier.tangency_volatility], [frontier.tangency_return],
+               color="#E37222", zorder=5, label="tangency (max Sharpe)")
+    xs = np.linspace(0, frontier.volatilities.max() * 1.1, 50)
+    slope = (frontier.tangency_return - risk_free_rate) / max(
+        frontier.tangency_volatility, 1e-12
+    )
+    ax.plot(xs, risk_free_rate + slope * xs, "--", color="#7F7F7F",
+            label="capital allocation line")
+    ax.set_xlabel("volatility")
+    ax.set_ylabel("expected return")
+    ax.legend()
+    ax.grid(alpha=0.3)
+    if filename:
+        fig.savefig(filename, dpi=120, bbox_inches="tight")
+        plt.close(fig)
+    return fig

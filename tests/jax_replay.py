@@ -122,3 +122,16 @@ class SmallGPRPosterior:
         """(C, dim) numpy points around m0."""
         rng = np.random.default_rng(seed)
         return np.asarray(self.flat0)[None] + scale * rng.normal(size=(chains, self.dim))
+
+
+def jax_probes(key, n, num_probes, dtype=torch.float64):
+    """The (CG probes, Lanczos probes) that the JAX package's nll_cg draws
+    from `key`, as the `probes=` of the port's (portfoliooptgp_tpu_torch/
+    ops/iterative.py): each (n, num_probes), the signs of
+    `jax.random.bernoulli(k, 0.5, ...)`, the CG probes from
+    `fold_in(key, 1)` and the Lanczos probes from `key`."""
+    def signs(k):
+        bits = np.asarray(jax.random.bernoulli(k, 0.5, (n, num_probes)))
+        return torch.from_numpy(np.where(bits, 1.0, -1.0)).to(dtype)
+
+    return signs(jax.random.fold_in(key, 1)), signs(key)

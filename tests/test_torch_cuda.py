@@ -815,3 +815,63 @@ def test_torch_cuda_sample_nuts_short_run(cuda):
     assert q["launches"]["stationary_nll_general"] == ev["vg"] + ev["logp"]
     assert 0.5 < q["accept"] < 1.0
     assert np.all(np.isfinite(q["mean"]))
+
+
+@pytest.mark.parametrize("B", [5, 20])
+def test_torch_cuda_panel_kernel_on_masked_walk_forward_systems(cuda, B):
+    """The panel kernel at every panel height of masked walk-forward
+    systems (N = 768: the diagonal of ones on the masked rows beside
+    σ² = 1e-5 on the kept ones), B = 5 (one restart a day) and 20 (four),
+    against its plain version (L within 3e-3 of max |L|, Σ log diag rtol
+    3e-3: chip_smoke.check_walk_panel); then the blocked NLL of those
+    systems on the card against CPU copies (values rtol 3e-3, gradients
+    normalized atol 2e-2)."""
+    import chip_smoke as cs
+    from portfoliooptgp_tpu_torch.ops import blocked_nll as bn
+
+    before = bn.LAUNCHES["blocked_panel"]
+    cs.check_walk_panel(B)
+    assert bn.LAUNCHES["blocked_panel"] == before + 6
+    K = cs.masked_walk_system(B, 768, noise=1e-5, seed=1)
+    y = torch.tensor(np.random.default_rng(B).normal(size=(B, 768)), dtype=torch.float32,
+                     device=cuda)
+    outs = []
+    for dev in (cuda, "cpu"):
+        leaves = [x.detach().to(dev).requires_grad_(True)
+                  for x in (K, y, torch.zeros(B, device=cuda))]
+        nll = bn.batched_nll_blocked(*leaves)
+        grads = torch.autograd.grad(nll.sum(), leaves)
+        outs.append((nll.detach().cpu(), [g.cpu() for g in grads]))
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=3e-3, atol=0)
+    for g, w in zip(outs[0][1], outs[1][1]):
+        scale = max(float(w.abs().max()), 1.0)
+        torch.testing.assert_close(g / scale, w / scale, rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("precond_rank", [0, 64])
+def test_torch_cuda_nll_cg_matches_cpu_float64(cuda, precond_rank):
+    """nll_cg in float32 on the card against its float64 value on the CPU
+    with the same probes (tools/smoke_tpu.py's kernel, N = 1024, 32 probes,
+    24 Lanczos steps): the value within smoke_tpu's CG tolerance rtol 2e-3,
+    the gradients in the variance, lengthscale and noise finite and within
+    its 1e-1 of the largest."""
+    from portfoliooptgp_tpu_torch.ops import iterative
+
+    n = 1024
+    Y = np.random.default_rng(0).normal(size=(n, 1))
+    gen = torch.Generator().manual_seed(3)
+    probes = tuple(iterative.rademacher((n, 32), gen, torch.float64) for _ in range(2))
+    outs = []
+    for dev, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        x = torch.arange(n, dtype=dtype, device=dev)
+        p = [torch.tensor(v, dtype=dtype, device=dev, requires_grad=True)
+             for v in (1.3, 30.0, 0.1)]
+        K = p[0] * torch.exp(-0.5 * (x[:, None] - x[None, :]) ** 2 / (p[1] * p[1]))
+        value = iterative.nll_cg(K, torch.tensor(Y, dtype=dtype, device=dev), p[2],
+                                 None, 32, 24, 1e-6, precond_rank, probes=probes)
+        grads = torch.autograd.grad(value, p)
+        outs.append((float(value.detach()), np.array([float(g) for g in grads])))
+    (v32, g32), (v64, g64) = outs
+    assert np.isfinite(v32) and np.all(np.isfinite(g32))
+    assert abs(v32 - v64) <= 2e-3 * abs(v64)
+    assert np.max(np.abs(g32 - g64)) <= 1e-1 * max(np.max(np.abs(g64)), 1.0)

@@ -94,6 +94,32 @@ tests/goldens_torch/frontier_1y_nuts.json: per seed μ, Σ, the tangency
 weights, return and volatility:
 
     JAX_PLATFORMS=cpu python tools/make_torch_goldens.py --nuts
+
+With `--cli` it runs the JAX package's CLI (`portfoliooptgp_tpu.cli.main`,
+with `--x64` unless `--float32`) on `chip_smoke.make_long_market`, a
+2019-07-01..2024-05-31 market, with the RunConfig of
+`chip_smoke.cli_config`: `portfolio` over the five assets on the three-year
+window (760 training rows: the walk-forward's blocked tier, padded N =
+768) and `multi-input --step 4` on `chip_smoke.CLI_TICKER` over the
+five-year window (1270 rows: the blocked_hinv tier, padded N = 1280). It
+writes tests/goldens_torch/cli_long_window.json (float64) or, with
+`--float32`, cli_long_window_f32.json (the panel and trinv Pallas kernels
+in interpret mode): per run each walk-forward's N, tier, per-day losses,
+next-day means and variances, the step-4 tails the command prints, and
+each strategy's cumulative return and Sharpe ratio from the `--metrics`
+JSONL. About 11 min in float64 and 30 min in float32 (the five-year run's
+interpret-mode hinv tier 24 min of it) on a shared eight-core machine:
+
+    JAX_PLATFORMS=cpu python tools/make_torch_goldens.py --cli --float32
+
+With `--walk-forward` it runs the JAX package's `batched_walk_forward`
+(jitted) on each case of `chip_smoke.WALK_LONG_CASES` (N = 288, 560 and
+1100: the float32 blocked and blocked_hinv tiers, the Pallas kernels in
+interpret mode) in float64 and float32, each in its own process, and
+writes tests/goldens_torch/walk_forward_long.json: per case and precision
+the per-day losses, next-day means and variances:
+
+    JAX_PLATFORMS=cpu python tools/make_torch_goldens.py --walk-forward
 """
 
 from __future__ import annotations
@@ -110,6 +136,8 @@ sys.path.insert(0, REPO)
 
 import jax  # noqa: E402
 
+# the JAX CLI turns on its persistent compile cache; keep it out of the tree
+os.environ.setdefault("PORTFOLIOOPTGP_JAX_CACHE", "0")
 jax.config.update("jax_platforms", "cpu")
 FLOAT32 = "--float32" in sys.argv[1:]
 jax.config.update("jax_enable_x64", not FLOAT32)
@@ -334,6 +362,128 @@ def multi_input() -> int:
     with open(path, "w") as fh:
         json.dump(out, fh, indent=1)
     print("workflow", f"{wf_seconds:.1f} s", json.dumps(quality), flush=True)
+    return 0
+
+
+def cli_long() -> int:
+    """The JAX CLI's `portfolio` (five assets, three-year window) and
+    `multi-input --step 4` (one asset, five-year window) on
+    `chip_smoke.make_long_market`, with `chip_smoke.cli_config`."""
+    from benchmarks.bench_portfolio_e2e import ASSETS, FEATURES
+    from chip_smoke import (CLI_MARKET, CLI_TICKER, CLI_WINDOWS, cli_config, cli_goldens_path,
+                            make_long_market)
+    from portfoliooptgp_tpu import cli, pipelines
+    from portfoliooptgp_tpu.ops.pallas import blocked_nll
+    from portfoliooptgp_tpu.pipelines import walk_forward
+
+    walks = []
+    real_walk = walk_forward.batched_walk_forward
+
+    def walk(X, Y, n_train, make_model, **kw):
+        res = real_walk(X, Y, n_train, make_model, **kw)
+        n, days = int(X.shape[0]), int(res.f_mean.shape[0])
+        tier = ("blocked" if blocked_nll.blocked_nll_preferred(n) else "blocked_hinv"
+                if blocked_nll.hinv_nll_preferred(n, days * len(kw["restart_noise_inits"]))
+                else "other")
+        walks.append(dict(n=n, d=int(X.shape[1]), tier_f32=tier,
+                          losses=np.asarray(res.losses, float).tolist(),
+                          f_mean=np.asarray(res.f_mean, float).tolist(),
+                          f_var=np.asarray(res.f_var, float).tolist()))
+        return res
+
+    class Recording(pipelines.MultiInputGPR):
+        def run_step_4(self, batched=True):
+            p = super().run_step_4(batched)
+            walks[-1].update(ticker=self.ticker, f_mean_tail=np.asarray(p.f_mean, float)
+                             .reshape(-1).tolist(), actual_tail=np.asarray(p.actual, float)
+                             .reshape(-1).tolist())
+            return p
+
+    real_cls = pipelines.MultiInputGPR
+    walk_forward.batched_walk_forward, pipelines.MultiInputGPR = walk, Recording
+    precision = [] if FLOAT32 else ["--x64"]
+    runs = {}
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            make_long_market(root)
+            for window, command, extra in (
+                    ("3y", "portfolio", ["--assets", *ASSETS]),
+                    ("5y", "multi-input", ["--ticker", CLI_TICKER, "--step", "4"])):
+                del walks[:]
+                cfg, metrics = os.path.join(root, f"{window}.json"), os.path.join(root, "m.jsonl")
+                with open(cfg, "w") as fh:
+                    json.dump(cli_config(window), fh)
+                t = time.perf_counter()
+                cli.main([command, "--config", cfg, "--data-root", root, *extra,
+                          "--features", *FEATURES, "--metrics", metrics, *precision])
+                strategies = {}
+                if os.path.exists(metrics):
+                    with open(metrics) as fh:
+                        for line in fh:
+                            rec = json.loads(line)
+                            strategies.setdefault(rec["strategy"], {})[rec["metric"]] = \
+                                rec["value"]
+                    os.remove(metrics)
+                runs[window] = dict(command=command, args=extra, config=cli_config(window),
+                                    walks=list(walks), strategies=strategies,
+                                    seconds=time.perf_counter() - t)
+                print(window, command, f"{runs[window]['seconds']:.1f} s",
+                      [(w["n"], w["tier_f32"]) for w in walks], json.dumps(strategies),
+                      flush=True)
+    finally:
+        walk_forward.batched_walk_forward, pipelines.MultiInputGPR = real_walk, real_cls
+    out = dict(
+        source=(f"JAX CLI (portfoliooptgp_tpu.cli.main), {'float32' if FLOAT32 else 'float64'}"
+                ", CPU (tools/make_torch_goldens.py --cli)"),
+        market="chip_smoke.make_long_market(seed=7)", market_days=CLI_MARKET,
+        windows=CLI_WINDOWS, features=FEATURES, runs=runs,
+        seconds=time.perf_counter() - t0)
+    with open(cli_goldens_path(FLOAT32), "w") as fh:
+        json.dump(out, fh, indent=1)
+    return 0
+
+
+def walk_forward_part(case: str) -> dict:
+    """One case of chip_smoke.WALK_LONG_CASES: JAX's batched_walk_forward
+    (jitted, the Pallas kernels in interpret mode in float32)."""
+    from chip_smoke import WALK_LONG_CASES, WALK_LONG_KW, long_series, walk_long_kernel
+    from portfoliooptgp_tpu import kernels as jk
+    from portfoliooptgp_tpu.pipelines import walk_forward
+
+    n, seed, span, kernel = WALK_LONG_CASES[case]
+    X, Y = long_series(n, seed, span)
+    dtype = jnp.float32 if FLOAT32 else jnp.float64
+
+    def make_model(v):
+        return jax.tree.map(lambda x: x.astype(dtype),
+                            gpr.GPR.create(walk_long_kernel(jk, kernel), v))
+
+    t0 = time.perf_counter()
+    res = jax.jit(lambda X, Y: walk_forward.batched_walk_forward(
+        X, Y, n - 3, make_model, **WALK_LONG_KW))(jnp.asarray(X, dtype), jnp.asarray(Y, dtype))
+    out = {k: np.asarray(getattr(res, k), float).tolist() for k in ("losses", "f_mean", "f_var")}
+    return dict(out, seconds=time.perf_counter() - t0)
+
+
+def walk_forward_long() -> int:
+    from chip_smoke import WALK_LONG_CASES, WALK_LONG_GOLDENS, WALK_LONG_KW
+
+    t0 = time.perf_counter()
+    cases = list(WALK_LONG_CASES)
+    jobs = [(i, f32) for f32 in (False, True) for i in range(len(cases))]
+    results = run_parts("--walk-forward-part", jobs)
+    out = dict(
+        source=("JAX batched_walk_forward, jitted, CPU, float64 and float32 (the Pallas "
+                "kernels in interpret mode) (tools/make_torch_goldens.py --walk-forward)"),
+        kw=WALK_LONG_KW, n_train="N - 3", cases={c: {} for c in cases},
+        seconds=time.perf_counter() - t0)
+    for (i, f32), r in zip(jobs, results):
+        out["cases"][cases[i]]["f32" if f32 else "f64"] = r
+    with open(WALK_LONG_GOLDENS, "w") as fh:
+        json.dump(out, fh, indent=1)
+    for c, r in out["cases"].items():
+        print(c, r["f64"]["losses"], r["f32"]["losses"], f"{r['f32']['seconds']:.1f} s")
     return 0
 
 
@@ -616,16 +766,24 @@ def frontier_nuts() -> int:
 
 
 def main() -> int:
-    for flag, part in (("--nuts-part", nuts_part), ("--frontier-nuts-part", frontier_nuts_part)):
+    from chip_smoke import WALK_LONG_CASES
+
+    for flag, part in (("--nuts-part", nuts_part), ("--frontier-nuts-part", frontier_nuts_part),
+                       ("--walk-forward-part",
+                        lambda i: walk_forward_part(list(WALK_LONG_CASES)[i]))):
         if flag in sys.argv[1:]:
             i = sys.argv.index(flag)
             with open(sys.argv[i + 2], "w") as fh:
                 json.dump(part(int(sys.argv[i + 1])), fh)
             return 0
+    if "--walk-forward" in sys.argv[1:]:
+        return walk_forward_long()
     if "--nuts" in sys.argv[1:]:
         return frontier_nuts() if "--frontier" in sys.argv[1:] else nuts()
     if "--svgp" in sys.argv[1:]:
         return svgp()
+    if "--cli" in sys.argv[1:]:
+        return cli_long()
     if "--multi-input" in sys.argv[1:]:
         return multi_input()
     if "--frontier" in sys.argv[1:]:
