@@ -1,7 +1,8 @@
 """CSV loaders for the two market-data schemas the reference ships.
 
-Port of portfoliooptgp_tpu/data/loader.py, pandas path only (the threaded
-C++ parser is listed in ROADMAP.md).
+Port of portfoliooptgp_tpu/data/loader.py. EOD files go through the
+threaded C++ parser of `native.py` when it builds, through pandas
+otherwise.
 
 - EOD schema: `date,open,high,low,close,adjusted_close,volume`
 - investing.com commodity schema: `"Date","Price","Open","High","Low",
@@ -16,15 +17,24 @@ from typing import Optional
 
 import pandas as pd
 
+from portfoliooptgp_tpu_torch import native
+
 
 def read_eod_csv(path: str, start_date: Optional[str] = None,
-                 end_date: Optional[str] = None, use_native: bool = False) -> pd.DataFrame:
+                 end_date: Optional[str] = None,
+                 use_native: Optional[bool] = None) -> pd.DataFrame:
+    """Read an EOD-schema CSV: by default through the native parser when it
+    is built, pandas otherwise; `use_native=True` raises if it cannot be."""
+    if use_native is None:
+        use_native = native.available()
     if use_native:
-        raise NotImplementedError(
-            "the native C++ CSV loader is not ported yet: ROADMAP.md queue 1: "
-            "data, portfolio and kernel leftovers")
-    df = pd.read_csv(path)
-    df["date"] = pd.to_datetime(df["date"])
+        cols = native.load_eod(path)
+        df = pd.DataFrame({"date": pd.to_datetime(cols["dates"], unit="D"),
+                           **{name: cols[name] for name in (
+                               "open", "high", "low", "close", "adjusted_close", "volume")}})
+    else:
+        df = pd.read_csv(path)
+        df["date"] = pd.to_datetime(df["date"])
     if start_date is not None:
         df = df[df["date"] >= start_date]
     if end_date is not None:
@@ -47,6 +57,23 @@ def convert_investing_csv(path: str) -> pd.DataFrame:
         }
     )
     return out.sort_values("date").reset_index(drop=True)
+
+
+def read_intraday_csv(paths) -> pd.DataFrame:
+    """Read 1-minute bar files (`DateTime,Open,High,Low,Close,Type,Volume`),
+    one file per day, concatenated in time order."""
+    if isinstance(paths, (str, os.PathLike)):
+        paths = [paths]
+    frames = []
+    for path in paths:
+        df = pd.read_csv(path)
+        df = df.rename(columns={
+            "DateTime": "datetime", "Open": "open", "High": "high", "Low": "low",
+            "Close": "close", "Type": "type", "Volume": "volume"})
+        df["datetime"] = pd.to_datetime(df["datetime"])
+        frames.append(df)
+    out = pd.concat(frames, ignore_index=True).sort_values("datetime")
+    return out.reset_index(drop=True)
 
 
 def resolve_csv_path(data_root: str, file_type: str, ticker: str, period: str = "d") -> str:

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import numpy as np
 import pandas as pd
+import torch
 from scipy.ndimage import gaussian_filter
 
 
@@ -46,3 +47,18 @@ def zscore(values):
     mean = float(np.mean(v))
     std = float(np.std(v, ddof=1))
     return (v - mean) / std, mean, std
+
+
+def denormalize(values, mean, std):
+    """Undo `zscore`: a tensor stays a tensor on its device, anything else
+    becomes a float64 numpy array."""
+    if not isinstance(values, torch.Tensor):
+        values = np.asarray(values, dtype=float)
+    return values * std + mean
+
+
+def denormalize_variance(var, std):
+    """A variance of z-scored values in the original units."""
+    if not isinstance(var, torch.Tensor):
+        var = np.asarray(var, dtype=float)
+    return var * std**2

@@ -1,8 +1,14 @@
-"""Kernels and mean functions (the JAX package's `Constant` and `White`
-kernels are listed in ROADMAP.md)."""
+"""Kernels and mean functions."""
 
 from portfoliooptgp_tpu_torch.device import DEFAULT_DEVICE, DEFAULT_DTYPE
-from portfoliooptgp_tpu_torch.kernels.base import Kernel, Product, Sum, normalize_active_dims
+from portfoliooptgp_tpu_torch.kernels.base import (
+    Constant,
+    Kernel,
+    Product,
+    Sum,
+    White,
+    normalize_active_dims,
+)
 from portfoliooptgp_tpu_torch.kernels.linear import Linear, Polynomial
 from portfoliooptgp_tpu_torch.kernels.means import (
     ConstantMean,
@@ -56,5 +62,5 @@ __all__ = [
     "Matern52", "Exponential", "RationalQuadratic", "Periodic", "Linear",
     "Polynomial", "Stationary", "MeanFunction", "Zero", "ConstantMean",
     "LinearMean", "PolynomialMean", "default_kernel_menu", "composite_kernel",
-    "normalize_active_dims",
+    "normalize_active_dims", "Constant", "White",
 ]

@@ -13,6 +13,9 @@ from typing import Optional
 
 import torch
 
+from portfoliooptgp_tpu_torch.device import DEFAULT_DEVICE, DEFAULT_DTYPE
+from portfoliooptgp_tpu_torch.params import as_param, positive, positive_inv
+
 ActiveDims = Optional[tuple]  # None | ("slice", start, stop) | ("idx", i0, i1, ...)
 
 
@@ -114,3 +117,57 @@ class Product(Kernel):
         for k in self.terms[1:]:
             out = out * k.Kdiag(X)
         return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Constant(Kernel):
+    """k(x,x') = σ² (gpflow.kernels.Constant); leaves [raw_variance (B,)]."""
+
+    raw_variance: torch.Tensor
+    active_dims: ActiveDims = None
+
+    @classmethod
+    def create(cls, variance=1.0, active_dims=None, *, device=DEFAULT_DEVICE,
+               dtype=DEFAULT_DTYPE):
+        return cls(raw_variance=positive_inv(as_param(variance, device, dtype)),
+                   active_dims=normalize_active_dims(active_dims))
+
+    @property
+    def variance(self):
+        return positive(self.raw_variance)
+
+    def _K(self, X, X2):
+        ones = torch.ones((X.shape[0], X2.shape[0]), dtype=X.dtype, device=X.device)
+        return self.variance[:, None, None] * ones
+
+    def _Kdiag(self, X):
+        return self.variance[:, None] * torch.ones(X.shape[0], dtype=X.dtype, device=X.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class White(Kernel):
+    """k(x,x') = σ² δ(x,x') (gpflow.kernels.White); leaves [raw_variance
+    (B,)]. As in the JAX package, `K(X, X2)` is σ²I whenever X2 has as many
+    rows as X, whether or not it is X, and zero otherwise."""
+
+    raw_variance: torch.Tensor
+    active_dims: ActiveDims = None
+
+    @classmethod
+    def create(cls, variance=1.0, active_dims=None, *, device=DEFAULT_DEVICE,
+               dtype=DEFAULT_DTYPE):
+        return cls(raw_variance=positive_inv(as_param(variance, device, dtype)),
+                   active_dims=normalize_active_dims(active_dims))
+
+    @property
+    def variance(self):
+        return positive(self.raw_variance)
+
+    def _K(self, X, X2):
+        v = self.variance[:, None, None]
+        if X.shape[0] == X2.shape[0]:
+            return v * torch.eye(X.shape[0], dtype=X.dtype, device=X.device)
+        return v * torch.zeros((X.shape[0], X2.shape[0]), dtype=X.dtype, device=X.device)
+
+    def _Kdiag(self, X):
+        return self.variance[:, None] * torch.ones(X.shape[0], dtype=X.dtype, device=X.device)

@@ -21,8 +21,12 @@ GH_POINTS = 20
 LOG2PI = math.log(2.0 * math.pi)
 
 
+class Likelihood:
+    """Base class of the likelihoods."""
+
+
 @dataclasses.dataclass(frozen=True)
-class Gaussian:
+class Gaussian(Likelihood):
     raw_variance: torch.Tensor  # (B,)
 
     @classmethod
@@ -49,7 +53,7 @@ class Gaussian:
 
 
 @dataclasses.dataclass(frozen=True)
-class StudentT:
+class StudentT(Likelihood):
     """Student-t with fixed degrees of freedom (GPflow's default df = 3) and
     a trainable scale."""
 

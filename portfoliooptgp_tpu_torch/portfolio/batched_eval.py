@@ -1,13 +1,12 @@
 """Per-day portfolio evaluation of the static strategies over the horizon.
 
 Port of portfoliooptgp_tpu/portfolio/batched_eval.py. Every day's moments
-are precomputed as (D, A) arrays; the JAX package solves the days in one
-jit call (a vmap for `min_volatility`, a scan carrying the previous
-weights for `sharpe`/`max_return`). Here the days are a Python loop with
-the same semantics: `min_volatility` days are independent (its objective
-has no transaction penalty), `sharpe`/`max_return` roll the previous
-weights forward, `constant` is closed-form and `dynamic` stays on the
-sequential path in `Portfolio.evaluate_portfolio`.
+are precomputed as (D, A) arrays. `min_volatility` days are independent
+(its objective has no transaction penalty), so they are one row-batched
+solve (portfolio/solver.minimize_simplex_rows), as the JAX package vmaps
+them; `sharpe`/`max_return` roll the previous weights forward day by day,
+where the JAX package scans; `constant` is closed-form and `dynamic`
+stays on the sequential path in `Portfolio.evaluate_portfolio`.
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ from portfoliooptgp_tpu_torch.portfolio.optimizer import (
     sharpe_objective,
     transaction_penalty,
 )
-from portfoliooptgp_tpu_torch.portfolio.solver import minimize_simplex
+from portfoliooptgp_tpu_torch.portfolio.solver import minimize_simplex, minimize_simplex_rows
 
 #: Strategies whose full horizon is solved here.
 BATCHABLE_STRATEGIES = ("constant", "sharpe", "max_return", "min_volatility")
@@ -51,14 +50,12 @@ def solve_horizon(strategy: str, mu, var, prev0, r_f, lambda_l1, lambda_l2, lamb
     if strategy == "constant":
         W = torch.full_like(mu, 1.0 / n)
     elif strategy == "min_volatility":
-        rows = []
-        for mu_d, var_d in zip(mu, var):
-            Sigma = torch.diag(var_d)
-            obj = lambda w, S=Sigma: (torch.sqrt(torch.clamp_min(w @ S @ w, 1e-18))
-                                      + l1_l2_penalty(w, lambda_l1, lambda_l2))
-            ineq = lambda w, m=mu_d: m @ w - min_return
-            rows.append(minimize_simplex(obj, n, ineq, **opt).weights)
-        W = torch.stack(rows)
+        def obj(W):
+            return (torch.sqrt(torch.clamp_min(torch.sum(W * var * W, dim=-1), 1e-18))
+                    + l1_l2_penalty(W, lambda_l1, lambda_l2))
+
+        W = minimize_simplex_rows(obj, D, n, lambda W: torch.sum(mu * W, dim=-1) - min_return,
+                                  **opt).weights
     elif strategy in ("sharpe", "max_return"):
         prev = as_tensor(prev0, device, dtype)
         rows = []

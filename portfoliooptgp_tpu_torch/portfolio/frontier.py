@@ -2,10 +2,10 @@
 target returns, and the tangency (maximum-Sharpe) portfolio.
 
 Port of portfoliooptgp_tpu/portfolio/frontier.py (`Frontier`,
-`efficient_frontier`, `plot_frontier`). Each point is one simplex solve
-with a return floor (portfolio/solver.minimize_simplex). The JAX package
-vmaps the 32 solves; here they are a Python loop, each solve independent
-of the others.
+`efficient_frontier`, `plot_frontier`). Each point is a simplex solve
+with a return floor; the sweep is one row-batched solve of all the
+points (portfolio/solver.minimize_simplex_rows), as the JAX package vmaps
+them. The tangency portfolio is one more solve.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from portfoliooptgp_tpu_torch.device import DEFAULT_DEVICE, DEFAULT_DTYPE, as_tensor
-from portfoliooptgp_tpu_torch.portfolio.solver import minimize_simplex
+from portfoliooptgp_tpu_torch.portfolio.solver import minimize_simplex, minimize_simplex_rows
 
 
 class Frontier(NamedTuple):
@@ -42,9 +42,11 @@ def efficient_frontier(mu, Sigma, risk_free_rate=0.0, n_points: int = 32, *,
     def vol(w):
         return torch.sqrt(torch.clamp_min(w @ Sigma @ w, 1e-18))
 
-    weights = torch.stack([
-        minimize_simplex(vol, p, ineq=lambda w, t=t: mu @ w - t, **opt).weights
-        for t in targets])
+    def vol_rows(W):
+        return torch.sqrt(torch.clamp_min(torch.sum((W @ Sigma) * W, dim=-1), 1e-18))
+
+    weights = minimize_simplex_rows(vol_rows, n_points, p, ineq=lambda W: W @ mu - targets,
+                                    **opt).weights
     rets = weights @ mu
     vols = torch.sqrt(torch.clamp_min(torch.einsum("np,pq,nq->n", weights, Sigma, weights),
                                       0.0))

@@ -28,7 +28,9 @@ def sharpe_objective(w, mu, Sigma, r_f):
 
 
 def l1_l2_penalty(w, lambda_l1, lambda_l2):
-    return lambda_l1 * torch.sum(torch.abs(w)) + lambda_l2 * torch.sum(w * w)
+    """The penalty of weights (..., n), one a row."""
+    return (lambda_l1 * torch.sum(torch.abs(w), dim=-1)
+            + lambda_l2 * torch.sum(w * w, dim=-1))
 
 
 def transaction_penalty(w, previous_weights, lambda_tx):

@@ -45,3 +45,25 @@ class Return:
         if transaction_costs is None:
             _, transaction_costs = self.calculate_portfolio_returns()
         return float(np.sum(transaction_costs))
+
+    def get_daily_transaction_costs(self, transaction_costs=None):
+        if transaction_costs is None:
+            _, transaction_costs = self.calculate_portfolio_returns()
+        return np.asarray(transaction_costs)
+
+    def get_daily_portfolio_returns(self, portfolio_returns=None):
+        if portfolio_returns is None:
+            portfolio_returns, _ = self.calculate_portfolio_returns()
+        return np.asarray(portfolio_returns)
+
+
+class Volatility:
+    """Portfolio volatility under independent assets: √Σ w²σ² per day."""
+
+    def __init__(self, predicted_volatilities, weights):
+        self.predicted_volatilities = np.asarray(predicted_volatilities, dtype=float)
+        self.weights = np.asarray(weights, dtype=float)
+
+    def calculate_portfolio_volatility(self):
+        var = np.sum(self.weights**2 * self.predicted_volatilities**2, axis=1)
+        return np.sqrt(var)

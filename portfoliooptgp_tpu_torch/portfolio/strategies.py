@@ -14,6 +14,7 @@ from abc import ABC, abstractmethod
 
 import numpy as np
 
+from portfoliooptgp_tpu_torch.device import DEFAULT_DEVICE, DEFAULT_DTYPE
 from portfoliooptgp_tpu_torch.portfolio.montecarlo import probability_a_greater_than_b_mvnorm
 from portfoliooptgp_tpu_torch.portfolio.optimizer import PortfolioOptimizer
 
@@ -74,8 +75,17 @@ class DynamicStrategy(Strategy):
         if mesh is not None:
             raise NotImplementedError(
                 "the mesh-sharded MC estimate is not ported yet: ROADMAP.md "
-                "queue 1: parallel/")
+                "queue 1 item 8: parallel/")
         self.decision = decision
+
+    def probability_a_greater_than_b_mvnorm(self, mu_a, cov_a, mu_b, cov_b,
+                                            num_samples=10_000, seed=0, *, draws=None,
+                                            device=DEFAULT_DEVICE, dtype=DEFAULT_DTYPE):
+        """P(A > B) in every dimension over two joint normals, by Monte
+        Carlo (portfolio/montecarlo.py; `draws` as there)."""
+        return probability_a_greater_than_b_mvnorm(mu_a, cov_a, mu_b, cov_b, num_samples,
+                                                   seed, draws=draws, device=device,
+                                                   dtype=dtype)
 
     def optimize(self, optimizer, max_volatility, min_return, mu_A=None, cov_A=None,
                  mu_B=None, cov_B=None, previous_weights=None, broker_fee: float = 0.001,
@@ -85,7 +95,7 @@ class DynamicStrategy(Strategy):
             return optimizer.maximize_returns(max_volatility)
 
         if self.decision == "prob_threshold":
-            prob = probability_a_greater_than_b_mvnorm(
+            prob = self.probability_a_greater_than_b_mvnorm(
                 mu_B, cov_B, mu_A, cov_A, num_samples=num_samples, seed=seed,
                 device=optimizer.device, dtype=optimizer.dtype)
             if prob >= prob_threshold:

@@ -9,10 +9,13 @@ Perfetto or chrome://tracing) into LOGDIR.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import time
 
 import torch
+
+from portfoliooptgp_tpu_torch import params
 
 
 @contextlib.contextmanager
@@ -32,22 +35,48 @@ def trace(logdir: str):
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
+def _tensors(tree):
+    """Every tensor in a result: tensors, tuples, lists, dicts and the
+    port's model dataclasses (through `params.tree_leaves`)."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for value in tree.values():
+            yield from _tensors(value)
+    elif isinstance(tree, (list, tuple)):
+        for value in tree:
+            yield from _tensors(value)
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for leaf in params.tree_leaves(tree):
+            yield from _tensors(leaf)
+
+
+def block_until_ready(tree):
+    """Wait for every CUDA device that holds a tensor of `tree`, once per
+    device: the counterpart of `jax.block_until_ready` on a pytree."""
+    devices = {t.device for t in _tensors(tree) if t.device.type == "cuda"}
+    for device in sorted(devices, key=str):
+        torch.cuda.synchronize(device)
+    return tree
+
+
 class StepTimer:
-    """Wall-clock step timer for steps/s metrics. A step that puts a tensor
-    under `out["result"]` is timed up to its device's completion: CUDA
-    runs asynchronously, so the timer synchronizes that device first."""
+    """Wall-clock step timer for steps/s metrics. Whatever a step puts
+    under `out["result"]` (a tensor, a tuple such as `(state, loss)`, a
+    model tree) is timed up to the completion of every device holding
+    one of its tensors: CUDA runs asynchronously."""
 
     def __init__(self):
         self.times = []
 
     @contextlib.contextmanager
-    def step(self):
+    def step(self, result_getter=None):
+        """`result_getter` is accepted, and unused, as in the JAX package."""
         t0 = time.perf_counter()
         out = {}
         yield out
-        result = out.get("result")
-        if isinstance(result, torch.Tensor) and result.device.type == "cuda":
-            torch.cuda.synchronize(result.device)
+        if "result" in out:
+            block_until_ready(out["result"])
         self.times.append(time.perf_counter() - t0)
 
     @property

@@ -875,3 +875,92 @@ def test_torch_cuda_nll_cg_matches_cpu_float64(cuda, precond_rank):
     assert np.isfinite(v32) and np.all(np.isfinite(g32))
     assert abs(v32 - v64) <= 2e-3 * abs(v64)
     assert np.max(np.abs(g32 - g64)) <= 1e-1 * max(np.max(np.abs(g64)), 1.0)
+
+
+def test_torch_cuda_step_timer_waits_for_a_tuple_result(cuda):
+    """A step whose result is `(state, loss)` is timed to its end: when the
+    step closes, nothing is left on the card's stream."""
+    from portfoliooptgp_tpu_torch.utils.profiling import StepTimer
+
+    A = torch.randn(4096, 4096, device=cuda)
+    timer = StepTimer()
+    torch.cuda.synchronize()
+    with timer.step() as out:
+        for _ in range(8):
+            A = torch.tanh(A @ A) * 0.01
+        out["result"] = ({"A": A}, A.sum())
+    assert torch.cuda.current_stream().query()
+    assert timer.times[0] > 0
+
+
+@pytest.mark.parametrize("B,N", [(20, 77), (5, 200)])
+def test_torch_cuda_white_sum_runs_the_dense_kernel(cuda, B, N):
+    """`Exponential + White` at padded N ≤ 256 routes to the dense tier and
+    launches the dense kernel (with W, its gradient needs it); value and
+    gradients within the smoke tolerances of the same call on the CPU."""
+    from portfoliooptgp_tpu_torch import kernels as tk
+    from portfoliooptgp_tpu_torch import params
+    from portfoliooptgp_tpu_torch.models import gpr
+    from portfoliooptgp_tpu_torch.ops import nll
+    from portfoliooptgp_tpu_torch.train import lbfgs
+
+    o = dict(device="cpu", dtype=torch.float32)
+    model = lbfgs.stack_pytrees([
+        gpr.GPR.create(tk.Exponential.create(1.0 + 0.1 * b, 0.5 + 0.2 * b, **o)
+                       + tk.White.create(0.01 * (b + 1), **o), 0.02) for b in range(B)])
+    t = np.linspace(-1.7, 1.7, N)
+    X = torch.tensor(t[:, None], **o)
+    Y = torch.tensor(np.sin(3 * t)[:, None], **o)
+    assert gpr.nll_tier(model, X, Y) == "pallas_dense"
+    outs = []
+    for dev in (cuda, "cpu"):
+        leaves = [x.to(dev).requires_grad_(True) for x in params.tree_leaves(model)]
+        before = nll.LAUNCHES["dense_nll_inv"]
+        value = gpr.batched_neg_log_marginal_likelihood(
+            params.tree_replace(model, leaves), X, Y, device=dev, dtype=torch.float32)
+        grads = torch.autograd.grad(value.sum(), leaves)
+        if dev == cuda:
+            assert nll.LAUNCHES["dense_nll_inv"] == before + 1
+        outs.append((value.detach().cpu(), [g.cpu() for g in grads]))
+    (v, g), (vw, gw) = outs
+    torch.testing.assert_close(v, vw, rtol=3e-3, atol=0)
+    for a, w in zip(g, gw):
+        scale = max(float(w.abs().max()), 1.0)
+        torch.testing.assert_close(a / scale, w / scale, rtol=0, atol=2e-2)
+
+
+def test_torch_cuda_native_csv_loader_builds():
+    """The CSV loader builds and loads on the card's machine, so the data
+    layer parses through it."""
+    from portfoliooptgp_tpu_torch import native
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    native.build()
+    assert native.available()
+
+
+def test_torch_cuda_minimize_simplex_rows_matches_cpu(cuda):
+    """The row-batched simplex solve on the card, in float64, against the
+    same call on the CPU, weights at atol 1e-8 (the CPU test's limit for
+    rows against one row): frontier-like return floors up to max μ, whose
+    top row's feasible set is one vertex, so rows stop at different trials
+    and the row masks reach the card mixed."""
+    from portfoliooptgp_tpu_torch.portfolio.solver import minimize_simplex_rows
+
+    rng = np.random.default_rng(7)
+    n, R = 5, 7
+    mu = rng.normal(0.002, 0.004, n)
+    var = rng.uniform(2e-5, 2e-4, (R, n))
+    weights = []
+    for dev in (cuda, "cpu"):
+        tmu, tvar = (torch.tensor(a, dtype=torch.float64, device=dev) for a in (mu, var))
+        floors = torch.linspace(float(mu.min()), float(mu.max()), R, dtype=torch.float64,
+                                device=dev)
+        res = minimize_simplex_rows(
+            lambda W: torch.sqrt(torch.clamp_min(torch.sum(W * tvar * W, dim=-1), 1e-18)),
+            R, n, lambda W: torch.sum(tmu * W, dim=-1) - floors, device=dev,
+            dtype=torch.float64)
+        assert res.weights.device.type == torch.device(dev).type
+        weights.append(res.weights.cpu().numpy())
+    np.testing.assert_allclose(weights[0], weights[1], atol=1e-8)

@@ -23,6 +23,7 @@ from portfoliooptgp_tpu_torch import params as tparams
 from portfoliooptgp_tpu_torch.models import gpr as tgpr
 from portfoliooptgp_tpu_torch.portfolio import optimizer as topt
 from portfoliooptgp_tpu_torch.portfolio.solver import minimize_simplex as t_minimize_simplex
+from portfoliooptgp_tpu_torch.portfolio.solver import minimize_simplex_rows
 from portfoliooptgp_tpu_torch.train import batched_lbfgs as tbl
 from portfoliooptgp_tpu_torch.train import lbfgs as tlb
 
@@ -130,3 +131,91 @@ def test_torch_minimize_simplex_matches_jax(rng):
                             lambda w: cap - torch.sqrt(torch.clamp_min(w @ tS @ w, 1e-18)),
                             **CPU64).weights
     np.testing.assert_allclose(tw.numpy(), np.asarray(jw), atol=1e-5)
+
+
+def _row_problems(kind, rng, R=6, D=4):
+    """R independent problems (per-row data) and starts; row 0 starts at
+    its minimum, so it stops before its first step."""
+    if kind == "quartic":
+        M = rng.normal(size=(R, D, D))
+        data = (M @ np.transpose(M, (0, 2, 1)) + 0.5 * np.eye(D), rng.normal(size=(R, D)))
+
+        def loss(z, A, c, lib):
+            r = z - c
+            return 0.5 * lib.sum(r * (A @ r)) + lib.sum(r ** 4)
+    else:  # a scaled Rosenbrock valley per row
+        data = (rng.uniform(10.0, 100.0, (R, 1)), rng.uniform(0.5, 1.5, (R, D)))
+
+        def loss(z, a, c, lib):
+            return lib.sum((c[:-1] - z[:-1]) ** 2 + a[0] * (z[1:] - z[:-1] ** 2) ** 2)
+    z0 = rng.normal(size=(R, D))
+    if kind == "quartic":
+        z0[0] = data[1][0]
+    return loss, data, z0
+
+
+@pytest.mark.parametrize("kind", ["quartic", "rosenbrock"])
+def test_torch_fit_rows_matches_scalar_fit_and_jax_vmap(kind, rng):
+    """`lbfgs.fit_rows` of R rows in lockstep follows each row solved alone
+    (`fit`, its one-row case: iterations within one, parameters at rtol
+    1e-8) and JAX's vmap of `lbfgs.fit`."""
+    loss, data, z0 = _row_problems(kind, rng)
+    tdata = [torch.as_tensor(d) for d in data]
+
+    def rows(Z):
+        return torch.stack([loss(Z[r], *(d[r] for d in tdata), torch)
+                            for r in range(Z.shape[0])])
+
+    got = tlb.fit_rows(rows, torch.as_tensor(z0), maxiter=200)
+    want = jax.jit(jax.vmap(lambda z, *d: jlb.fit(lambda p: loss(p, *d, jnp), z,
+                                                  maxiter=200)))(
+        jnp.asarray(z0), *(jnp.asarray(d) for d in data))
+    if kind == "quartic":
+        assert int(got.iters[0]) == 0
+    for r in range(z0.shape[0]):
+        one = tlb.fit(lambda z, r=r: loss(z, *(d[r] for d in tdata), torch),
+                      torch.as_tensor(z0[r]), maxiter=200)
+        assert abs(int(got.iters[r]) - one.iters) <= 1
+        assert abs(int(got.iters[r]) - int(want.iters[r])) <= 1
+        np.testing.assert_allclose(got.params[r].numpy(), one.params.numpy(), rtol=1e-8,
+                                   atol=1e-12)
+        np.testing.assert_allclose(got.params[r].numpy(), np.asarray(want.params[r]),
+                                   rtol=1e-8, atol=1e-12)
+        np.testing.assert_allclose(float(got.loss[r]), one.loss, rtol=1e-8, atol=1e-14)
+        assert bool(got.converged[r]) == one.converged
+
+
+@pytest.mark.parametrize("constraint", ["return_floor", "none"])
+def test_torch_minimize_simplex_rows_matches_scalar(constraint, rng):
+    """The row-batched solve against one `minimize_simplex` (its one-row
+    case) a row, weights at atol 1e-8: frontier-like return floors up to
+    max μ (whose feasible set is one vertex) on a diagonal Σ, or the Sharpe
+    objective per row."""
+    n, R = 5, 7
+    mu = rng.normal(0.002, 0.004, n)
+    var = rng.uniform(2e-5, 2e-4, (R, n))
+    tmu, tvar = torch.as_tensor(mu), torch.as_tensor(var)
+    floors = torch.linspace(float(mu.min()), float(mu.max()), R, dtype=torch.float64)
+    if constraint == "return_floor":
+        def obj(W):
+            return torch.sqrt(torch.clamp_min(torch.sum(W * tvar * W, dim=-1), 1e-18))
+
+        def ineq(W):
+            return torch.sum(tmu * W, dim=-1) - floors
+    else:
+        def obj(W):
+            ret = torch.sum(tmu * W, dim=-1) - 1e-4
+            return -ret / torch.sqrt(torch.sum(W * tvar * W, dim=-1))
+
+        ineq = None
+    got = minimize_simplex_rows(obj, R, n, ineq, **CPU64)
+    for r in range(R):
+        def one(w, r=r):
+            return obj(w[None].expand(R, n))[r]
+
+        one_ineq = None if ineq is None else (lambda w, r=r: ineq(w[None].expand(R, n))[r])
+        want = t_minimize_simplex(one, n, one_ineq, **CPU64)
+        np.testing.assert_allclose(got.weights[r].numpy(), want.weights.numpy(), atol=1e-8)
+        np.testing.assert_allclose(float(got.constraint_violation[r]),
+                                   float(want.constraint_violation), atol=1e-10)
+    np.testing.assert_allclose(got.weights.sum(-1).numpy(), 1.0, rtol=1e-12)

@@ -95,3 +95,57 @@ def test_torch_montecarlo_matches_jax_with_shared_draws():
     p = tmc.probability_a_greater_than_b_cdf(f64(0.01), f64(0.02), f64(0.0), f64(0.03))
     np.testing.assert_allclose(float(p), float(jmc.probability_a_greater_than_b_cdf(
         0.01, 0.02, 0.0, 0.03)), rtol=1e-12)
+
+
+def test_torch_simplex_project_matches_jax(rng):
+    from portfoliooptgp_tpu.portfolio.solver import simplex_project as jproject
+    from portfoliooptgp_tpu_torch.portfolio.solver import simplex_project as tproject
+
+    W = np.concatenate([rng.normal(0.2, 0.5, (6, 5)), np.full((1, 5), 0.2),
+                        [[1.0, 0, 0, 0, 0], [3.0, -1.0, 0.5, 0.5, 2.0]]])
+    for w in (W, W[0]):
+        got = tproject(torch.as_tensor(w)).numpy()
+        np.testing.assert_allclose(got, np.asarray(jproject(jnp.asarray(w))), rtol=1e-12,
+                                   atol=1e-15)
+        np.testing.assert_allclose(got.sum(-1), 1.0, rtol=1e-12)
+        assert got.min() >= 0.0
+
+
+def test_torch_volatility_and_daily_getters_match_jax(rng):
+    from portfoliooptgp_tpu.portfolio import returns as jreturns
+    from portfoliooptgp_tpu_torch.portfolio import returns as treturns
+
+    vols, w = rng.uniform(0.01, 0.05, (4, 5)), rng.dirichlet(np.ones(5), 4)
+    np.testing.assert_allclose(
+        treturns.Volatility(vols, w).calculate_portfolio_volatility(),
+        jreturns.Volatility(vols, w).calculate_portfolio_volatility(), rtol=1e-15)
+    actual = [list(rng.normal(0, 0.01, 4)) for _ in range(5)]
+    jr, tr = jreturns.Return(actual, w, 1e-3), treturns.Return(actual, w, 1e-3)
+    for name in ("get_daily_transaction_costs", "get_daily_portfolio_returns"):
+        np.testing.assert_array_equal(getattr(tr, name)(), getattr(jr, name)())
+        given = list(rng.normal(size=4))
+        np.testing.assert_array_equal(getattr(tr, name)(given), getattr(jr, name)(given))
+
+
+def test_torch_dynamic_strategy_probability_matches_jax_with_shared_draws():
+    """The strategy's method on the JAX package's draws gives its estimate;
+    a mesh still raises, naming its queue."""
+    from portfoliooptgp_tpu.portfolio.strategies import DynamicStrategy as JDynamic
+    from portfoliooptgp_tpu_torch.portfolio.strategies import DynamicStrategy as TDynamic
+
+    rng = np.random.default_rng(9)
+    mu_a, mu_b = rng.normal(0.003, 0.01, 4), rng.normal(0, 0.01, 4)
+    A, B = rng.normal(size=(4, 4)) * 0.01, rng.normal(size=(4, 4)) * 0.01
+    cov_a, cov_b = A @ A.T, B @ B.T
+    n, seed = 4000, 3
+    key_a, key_b = jax.random.split(jax.random.PRNGKey(seed))
+    draws = (np.asarray(jax.random.normal(key_a, (n, 4), dtype=jnp.float64)),
+             np.asarray(jax.random.normal(key_b, (n, 4), dtype=jnp.float64)))
+    want = JDynamic(decision="prob_threshold").probability_a_greater_than_b_mvnorm(
+        mu_a, cov_a, mu_b, cov_b, n, seed)
+    got = TDynamic(decision="prob_threshold").probability_a_greater_than_b_mvnorm(
+        mu_a, cov_a, mu_b, cov_b, n, seed, draws=draws, **CPU64)
+    # the same hits of the same draws (JAX averages them in float32 here)
+    assert got * n == round(want * n) and 0.0 < got < 1.0
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        TDynamic(mesh=object())
