@@ -135,7 +135,24 @@ Phases, each fatal on failure:
      128 probes and 48 Lanczos steps; the rank-256 PCG with split SLQ, 64
      probes and 8 steps) against the dense torch.linalg value+grad, with
      their CG iteration counts; (d) `print-config` and `--help` through
-     `python -m portfoliooptgp_tpu_torch`.
+     `python -m portfoliooptgp_tpu_torch`;
+ 13. parallel/ across ranks (`phase_parallel`), in spawned processes (the
+     script's own process joins no process group): world 1 on NCCL and
+     world 2 on gloo with both ranks on the card. (a) `sharded_neg_elbo`
+     on bench.py's first batch against the one-device
+     `gaussian_elbo_gram_fused(use_pallas=True)` (one gram kernel pair per
+     rank and value+grad), sharded Adam steps per second per rank, and at
+     world 2 the trainer on the mesh (60 steps) against
+     tests/goldens_torch/svgp_full_aapl*.json with the ranks' models equal;
+     (b) `sharded_gpr_nll` at N = 8192, block 128, both layouts, against
+     the dense torch.linalg value+grad on the card and on CPU float64
+     copies, its forward and backward seconds; (c) at world 2 the
+     restart-sharded walk-forward (5 days × 2 restarts, N = 77, the tile
+     kernel) against the unsharded run (the start bit for bit); (d) NUTS with the
+     adaptation pooled over the ranks (4 chains a rank, N = 128, 20 + 20
+     transitions): equal adapted step sizes and metrics, and at world 1
+     the draws of the run without a mesh; (e) at world 2 the sharded MC
+     estimate; then `dryrun_multichip`'s six checks as the ranks' code.
 Then it prints the card's name and power limit, one JSON line describing
 every kernel, and the last line {"ok": true, "device": {...}}.
 
@@ -1754,31 +1771,10 @@ def run_svgp(goldens32, device=DEVICE, dtype=torch.float32):
     ELBO on the first batch at the start (and, route (ii), its gradient),
     the final leaves, `predict_f` on SVGP_GRID points, and the ELBOs
     replayed at JAX float32's final leaves of the same route."""
-    from portfoliooptgp_tpu_torch.models import svgp as svgp_mod
-    from portfoliooptgp_tpu_torch.params import tree_leaves, tree_replace
     from portfoliooptgp_tpu_torch.train import svgp_trainer
 
-    o = dict(device=device, dtype=dtype)
     Xn, Yn, _ = svgp_problem()
-    X, Y = torch.tensor(Xn, **o), torch.tensor(Yn, **o)
-    Xb, Yb = X[:SVGP_BATCH], Y[:SVGP_BATCH]
-    wb = torch.ones((SVGP_BATCH,), **o)
-    grid = torch.tensor(np.linspace(0, Xn.max(), SVGP_GRID)[:, None], **o)
     model0 = svgp_model(goldens32["leaves_start"], device, dtype)
-
-    def full_elbo(m):
-        with torch.no_grad():
-            return float(svgp_mod.gaussian_elbo_gram(m, X, Y))
-
-    def batch_elbo(m, route, grad=False):
-        leaves = [x.detach().requires_grad_(grad) for x in tree_leaves(m)]
-        with torch.enable_grad():
-            v = svgp_mod.gaussian_elbo_gram_fused(tree_replace(m, leaves), Xb, Yb, weights=wb,
-                                                  num_data=SVGP_N,
-                                                  use_pallas=route == "kernel")
-            g = torch.autograd.grad(v, leaves) if grad else None
-        return float(v.detach()), g
-
     q = dict(device=torch.device(device).type, routes={})
     for route in SVGP_ROUTES:
         _reset_launch_counts()
@@ -1793,27 +1789,58 @@ def run_svgp(goldens32, device=DEVICE, dtype=torch.float32):
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {k: v for k, v in _launch_counts().items() if k.startswith("svgp_gram")}
-        g32 = goldens32["routes"][route]
-        v0, g0 = batch_elbo(model0, route, grad=route == "kernel")
-        at32 = svgp_model(g32["leaves_final"], device, dtype)
-        with torch.no_grad():
-            mean, var = svgp_mod.predict_f(model, grid)
-            mean32, var32 = svgp_mod.predict_f(at32, grid)
-        q["routes"][route] = dict(
-            seconds=seconds, iters=int(iters), launches=launches, train_elbo=float(train_elbo),
-            use_pallas=route == "kernel", eligible=svgp_mod.svgp_gram_fused_supported(model0, Xb),
-            elbo_start=full_elbo(model0), elbo_final=full_elbo(model),
-            batch_elbo_start=v0,
-            batch_grads_start=None if g0 is None else [
-                x.double().cpu().reshape(-1).tolist() for x in g0],
-            leaves_final=_svgp_flat(model),
-            f_mean=mean.double().cpu().reshape(-1).tolist(),
-            f_var=var.double().cpu().reshape(-1).tolist(),
-            replay=dict(elbo_final=full_elbo(at32),
-                        batch_elbo_final=batch_elbo(at32, route)[0],
-                        f_mean=mean32.double().cpu().reshape(-1).tolist(),
-                        f_var=var32.double().cpu().reshape(-1).tolist()))
+        q["routes"][route] = svgp_route_quality(route, model0, model, iters, train_elbo,
+                                                launches, seconds, goldens32, device, dtype)
     return q
+
+
+def svgp_route_quality(route, model0, model, iters, train_elbo, launches, seconds, goldens32,
+                       device=DEVICE, dtype=torch.float32):
+    """One route's entry of `run_svgp`'s quality dict for a run that trained
+    `model0` into `model` (on bench.py's problem, `iters` real steps)."""
+    from portfoliooptgp_tpu_torch.models import svgp as svgp_mod
+    from portfoliooptgp_tpu_torch.params import tree_leaves, tree_replace
+
+    o = dict(device=device, dtype=dtype)
+    Xn, Yn, _ = svgp_problem()
+    X, Y = torch.tensor(Xn, **o), torch.tensor(Yn, **o)
+    Xb, Yb = X[:SVGP_BATCH], Y[:SVGP_BATCH]
+    wb = torch.ones((SVGP_BATCH,), **o)
+    grid = torch.tensor(np.linspace(0, Xn.max(), SVGP_GRID)[:, None], **o)
+
+    def full_elbo(m):
+        with torch.no_grad():
+            return float(svgp_mod.gaussian_elbo_gram(m, X, Y))
+
+    def batch_elbo(m, grad=False):
+        leaves = [x.detach().requires_grad_(grad) for x in tree_leaves(m)]
+        with torch.enable_grad():
+            v = svgp_mod.gaussian_elbo_gram_fused(tree_replace(m, leaves), Xb, Yb, weights=wb,
+                                                  num_data=SVGP_N,
+                                                  use_pallas=route == "kernel")
+            g = torch.autograd.grad(v, leaves) if grad else None
+        return float(v.detach()), g
+
+    g32 = goldens32["routes"][route]
+    v0, g0 = batch_elbo(model0, grad=route == "kernel")
+    at32 = svgp_model(g32["leaves_final"], device, dtype)
+    with torch.no_grad():
+        mean, var = svgp_mod.predict_f(model, grid)
+        mean32, var32 = svgp_mod.predict_f(at32, grid)
+    return dict(
+        seconds=seconds, iters=int(iters), launches=launches, train_elbo=float(train_elbo),
+        use_pallas=route == "kernel", eligible=svgp_mod.svgp_gram_fused_supported(model0, Xb),
+        elbo_start=full_elbo(model0), elbo_final=full_elbo(model),
+        batch_elbo_start=v0,
+        batch_grads_start=None if g0 is None else [
+            x.double().cpu().reshape(-1).tolist() for x in g0],
+        leaves_final=_svgp_flat(model),
+        f_mean=mean.double().cpu().reshape(-1).tolist(),
+        f_var=var.double().cpu().reshape(-1).tolist(),
+        replay=dict(elbo_final=full_elbo(at32),
+                    batch_elbo_final=batch_elbo(at32)[0],
+                    f_mean=mean32.double().cpu().reshape(-1).tolist(),
+                    f_var=var32.double().cpu().reshape(-1).tolist()))
 
 
 SVGP_ELBO_RTOL = 1e-4  # an ELBO at the same leaves as JAX float32's, same route
@@ -1859,23 +1886,34 @@ def svgp_route_distances(q, goldens32):
     """{route: [(quantity, max |run − JAX float32's run of the route|,
     limit)]} for a run_svgp quality dict; a quantity of the wrong shape or
     with non-finite values, or a missing one, gets an infinite distance."""
+    return {route: _route_distances(route, q["routes"][route], goldens32)
+            for route in SVGP_ROUTES}
+
+
+def _route_distances(route, r, goldens32):
     lims = svgp_route_limits(goldens32)
-    out = {}
-    for route in SVGP_ROUTES:
-        mine = dict(_svgp_outcome(q["routes"][route]))
-        rows = []
-        for (name, ref), lim in zip(_svgp_outcome(goldens32["routes"][route]), lims):
-            x, ref = np.asarray(mine.get(name, []), np.float64), np.asarray(ref, np.float64)
-            ok = x.shape == ref.shape and np.all(np.isfinite(x))
-            rows.append((name, float(np.abs(x - ref).max()) if ok else float("inf"), lim))
-        out[route] = rows
-    return out
+    mine = dict(_svgp_outcome(r))
+    rows = []
+    for (name, ref), lim in zip(_svgp_outcome(goldens32["routes"][route]), lims):
+        x, ref = np.asarray(mine.get(name, []), np.float64), np.asarray(ref, np.float64)
+        ok = x.shape == ref.shape and np.all(np.isfinite(x))
+        rows.append((name, float(np.abs(x - ref).max()) if ok else float("inf"), lim))
+    return rows
 
 
 def compare_svgp(q, goldens, goldens32):
     """(ok, list of failures) of a run_svgp quality dict against the JAX
     float64 goldens (route (i), the only route in float64) and JAX's float32
-    run of each route:
+    run of each route (`compare_svgp_route`)."""
+    bad = [b for route in SVGP_ROUTES
+           for b in compare_svgp_route(route, q["routes"][route], q["device"], goldens,
+                                       goldens32)]
+    return not bad, bad
+
+
+def compare_svgp_route(route, r, device, goldens, goldens32):
+    """The failures of one route's run (`svgp_route_quality`; `device` the
+    type it ran on) against the goldens:
     - the route: the model eligible for the gram kernels, route (ii) asking
       for them (use_pallas) and route (i) not, and on the card the kernels
       launched once per real step in route (ii) (the 4 all-zero tail batches
@@ -1893,56 +1931,52 @@ def compare_svgp(q, goldens, goldens32):
       batches and Adam)."""
     bad = []
     g64 = goldens["routes"]["xla"]
-    for route, rows in svgp_route_distances(q, goldens32).items():
-        for name, err, lim in rows:
-            if not err <= lim:
-                bad.append(f"route {route}: {name}: |err| {err:.3g} from JAX float32's run of "
-                           f"the route > {lim:.3g}")
-    for route in SVGP_ROUTES:
-        r, g32 = q["routes"][route], goldens32["routes"][route]
-        tag = f"route {route}"
-        if not r["eligible"] or r["use_pallas"] != (route == "kernel"):
-            bad.append(f"{tag}: eligible {r['eligible']}, use_pallas {r['use_pallas']}")
-        fwd, bwd = r["launches"]["svgp_gram_fwd"], r["launches"]["svgp_gram_bwd"]
-        want = r["iters"] if (route == "kernel" and q["device"] == "cuda") else 0
-        if fwd != want or bwd != want:
-            bad.append(f"{tag}: gram launches fwd {fwd}, bwd {bwd}, expected {want} each")
-        if r["iters"] != g32["iters"]:
-            bad.append(f"{tag}: {r['iters']} steps != {g32['iters']}")
-        for name, x, ref in (
-                ("full ELBO at the start", r["elbo_start"], g32["elbo_start"]),
-                ("batch ELBO at the start", r["batch_elbo_start"], g32["batch_elbo_start"]),
-                ("full ELBO at JAX's final leaves", r["replay"]["elbo_final"],
-                 g32["elbo_final"]),
-                ("batch ELBO at JAX's final leaves", r["replay"]["batch_elbo_final"],
-                 g32["batch_elbo_final"])):
-            if not abs(x - ref) <= SVGP_ELBO_RTOL * abs(ref):
-                bad.append(f"{tag}: {name} {x:.8g} vs {ref:.8g}")
-        for key, tol in (("f_mean", SVGP_REPLAY_MEAN_ATOL), ("f_var", SVGP_REPLAY_VAR_ATOL)):
-            ref = np.asarray(g32[key])
-            err = np.abs(np.asarray(r["replay"][key]) - ref).max() / np.abs(ref).max()
-            if not err <= tol:
-                bad.append(f"{tag}: {key} at JAX's final leaves, err {err:.3g} of max > {tol}")
-        if g32["batch_grads_start"] is not None:
-            for k, (g, ref) in enumerate(zip(r["batch_grads_start"], g32["batch_grads_start"])):
-                ref = np.asarray(ref)
-                err = np.abs(np.asarray(g) - ref).max() / max(np.abs(ref).max(), 1.0)
-                if not err <= SVGP_GRAD_ATOL:
-                    bad.append(f"{tag}: gradient leaf {k} at the start, normalized err {err:.3g}")
-        mine = dict(_svgp_outcome(r))
-        for (name, ref32), (_, ref64) in zip(_svgp_outcome(g32), _svgp_outcome(g64)):
-            x, ref32, ref64 = (np.asarray(a, np.float64)
-                               for a in (mine.get(name, []), ref32, ref64))
-            if x.shape != ref64.shape or not np.all(np.isfinite(x)):
-                bad.append(f"{tag}: {name}: shape {x.shape} or non-finite values")
-                continue
-            spread = np.abs(ref32 - ref64).max()
-            lim = SVGP_SPREAD * spread
-            err = np.abs(x - ref64).max()
-            if not err <= lim:
-                bad.append(f"{tag}: {name}: |err| {err:.3g} against the float64 golden > "
-                           f"{lim:.3g} (JAX float32 spread {spread:.3g})")
-    return not bad, bad
+    g32 = goldens32["routes"][route]
+    tag = f"route {route}"
+    for name, err, lim in _route_distances(route, r, goldens32):
+        if not err <= lim:
+            bad.append(f"{tag}: {name}: |err| {err:.3g} from JAX float32's run of the route "
+                       f"> {lim:.3g}")
+    if not r["eligible"] or r["use_pallas"] != (route == "kernel"):
+        bad.append(f"{tag}: eligible {r['eligible']}, use_pallas {r['use_pallas']}")
+    fwd, bwd = r["launches"]["svgp_gram_fwd"], r["launches"]["svgp_gram_bwd"]
+    want = r["iters"] if (route == "kernel" and device == "cuda") else 0
+    if fwd != want or bwd != want:
+        bad.append(f"{tag}: gram launches fwd {fwd}, bwd {bwd}, expected {want} each")
+    if r["iters"] != g32["iters"]:
+        bad.append(f"{tag}: {r['iters']} steps != {g32['iters']}")
+    for name, x, ref in (
+            ("full ELBO at the start", r["elbo_start"], g32["elbo_start"]),
+            ("batch ELBO at the start", r["batch_elbo_start"], g32["batch_elbo_start"]),
+            ("full ELBO at JAX's final leaves", r["replay"]["elbo_final"], g32["elbo_final"]),
+            ("batch ELBO at JAX's final leaves", r["replay"]["batch_elbo_final"],
+             g32["batch_elbo_final"])):
+        if not abs(x - ref) <= SVGP_ELBO_RTOL * abs(ref):
+            bad.append(f"{tag}: {name} {x:.8g} vs {ref:.8g}")
+    for key, tol in (("f_mean", SVGP_REPLAY_MEAN_ATOL), ("f_var", SVGP_REPLAY_VAR_ATOL)):
+        ref = np.asarray(g32[key])
+        err = np.abs(np.asarray(r["replay"][key]) - ref).max() / np.abs(ref).max()
+        if not err <= tol:
+            bad.append(f"{tag}: {key} at JAX's final leaves, err {err:.3g} of max > {tol}")
+    if g32["batch_grads_start"] is not None:
+        for k, (g, ref) in enumerate(zip(r["batch_grads_start"], g32["batch_grads_start"])):
+            ref = np.asarray(ref)
+            err = np.abs(np.asarray(g) - ref).max() / max(np.abs(ref).max(), 1.0)
+            if not err <= SVGP_GRAD_ATOL:
+                bad.append(f"{tag}: gradient leaf {k} at the start, normalized err {err:.3g}")
+    mine = dict(_svgp_outcome(r))
+    for (name, ref32), (_, ref64) in zip(_svgp_outcome(g32), _svgp_outcome(g64)):
+        x, ref32, ref64 = (np.asarray(a, np.float64) for a in (mine.get(name, []), ref32, ref64))
+        if x.shape != ref64.shape or not np.all(np.isfinite(x)):
+            bad.append(f"{tag}: {name}: shape {x.shape} or non-finite values")
+            continue
+        spread = np.abs(ref32 - ref64).max()
+        lim = SVGP_SPREAD * spread
+        err = np.abs(x - ref64).max()
+        if not err <= lim:
+            bad.append(f"{tag}: {name}: |err| {err:.3g} against the float64 golden > "
+                       f"{lim:.3g} (JAX float32 spread {spread:.3g})")
+    return bad
 
 
 GRAM_SHAPES = ((16, 96), (64, 512), (128, 2048), (128, 8192))  # (M, B) of phase 10a
@@ -4061,6 +4095,390 @@ def phase_cli():
     return out
 
 
+# Phase 13: parallel/ across ranks. Each world runs `parallel_rank` in
+# spawned processes (parallel/distributed.spawn); this process joins no
+# process group (phase 12's CLI children run beside it). World 1 is NCCL,
+# the deployment's backend; world 2 puts both ranks on the one card, which
+# NCCL cannot, so it asks for gloo by name (gloo's all-reduce, all-gather
+# and broadcast take CUDA tensors).
+PARALLEL_WORLDS = ((1, "nccl"), (2, "gloo"))
+DIST_N, DIST_NB = 8192, 128  # sharded_gpr_nll's check: a well-conditioned K
+PARALLEL_STEPS = 100  # timed sharded Adam steps on the first batch
+PARALLEL_WALK = dict(n=77, n_train=72, n_days=5, restarts=(1e-3, 1e-1), maxiter=100)
+# The trained walk-forward against the unsharded run: float32 per-row
+# results on the card depend on the batch's row count (PyTorch's CUDA
+# reductions and batched matmuls split their work by it), so L-BFGS
+# trajectories part after the first gradient (on an H100, 7e-7 relative
+# after one iteration and 3e-4 in the losses after 100). The means and
+# variances are held at tests/test_torch_walk_forward.py's float32
+# tolerance (rtol 2e-2, atol 2e-3), the losses at rtol 1e-3; the
+# evaluation at the start (maxiter 0) is held bit for bit.
+PARALLEL_WALK_LIMITS = dict(losses=(1e-3, 0.0), f_mean=(2e-2, 2e-3), f_var=(2e-2, 2e-3))
+PARALLEL_NUTS = dict(num_chains=4, num_warmup=20, num_samples=20, max_depth=6)
+PARALLEL_MC = dict(mu_a=[0.01, 0.012, 0.008], mu_b=[0.008, 0.009, 0.007], n=40_000,
+                   atol=0.02)  # tests/test_parallel.py's MC tolerance
+
+
+def _timed(fn, device):
+    """(fn(), seconds), synchronized with `device` when it is a card."""
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _gathered_equal(x, mesh):
+    """True when every rank of the data axis holds the same `x`."""
+    from portfoliooptgp_tpu_torch.parallel.mesh import all_gather
+
+    g = all_gather(x.detach().reshape(1, -1), mesh)
+    return bool(torch.all(g == g[:1]))
+
+
+def _parallel_elbo(mesh, world, goldens, goldens32, out):
+    """(a) sharded_neg_elbo on bench.py's first batch against the one-device
+    kernel route; at world 2, the trainer on the mesh against the goldens."""
+    from portfoliooptgp_tpu_torch.models import svgp as svgp_mod
+    from portfoliooptgp_tpu_torch.ops import svgp_gram as sg
+    from portfoliooptgp_tpu_torch.parallel import elbo_sharded
+    from portfoliooptgp_tpu_torch.parallel.mesh import shard_batch
+    from portfoliooptgp_tpu_torch.params import ravel, tree_leaves, tree_replace
+    from portfoliooptgp_tpu_torch.train import svgp_trainer
+    from portfoliooptgp_tpu_torch.train.optim import Adam, make_step
+
+    dev = mesh.device
+    o = dict(device=dev, dtype=torch.float32)
+    Xn, Yn, _ = svgp_problem()
+    model0 = svgp_model(goldens32["leaves_start"], dev)
+    Xb, Yb = torch.tensor(Xn[:SVGP_BATCH], **o), torch.tensor(Yn[:SVGP_BATCH], **o)
+    wb = torch.ones((SVGP_BATCH,), **o)
+    Xs, Ys, ws = shard_batch(mesh, Xb, Yb, wb)
+
+    def value_grad(fn):
+        leaves = [x.detach().requires_grad_(True) for x in tree_leaves(model0)]
+        v = fn(tree_replace(model0, leaves))
+        return v.detach().reshape(1), torch.autograd.grad(v, leaves)
+
+    want = value_grad(lambda m: -svgp_mod.gaussian_elbo_gram_fused(
+        m, Xb, Yb, weights=wb, num_data=SVGP_N, use_pallas=True))
+    before = dict(sg.LAUNCHES)
+    got = value_grad(lambda m: elbo_sharded.sharded_neg_elbo(m, Xs, Ys, ws, SVGP_N, mesh))
+    launches = {k: sg.LAUNCHES[k] - before[k] for k in before}
+    cuda = dev.type == "cuda"
+    if launches != {"svgp_gram_fwd": int(cuda), "svgp_gram_bwd": int(cuda)}:
+        raise AssertionError(f"a sharded value+grad launched {launches}, not one gram pair")
+    out["elbo"] = dict(value_err=_check_values("sharded ELBO", got[0], want[0]),
+                       grad_err=_check_grads("sharded ELBO", got[1], want[1]),
+                       launches=launches, local_batch=int(Xs.shape[0]))
+
+    step = make_step(lambda m, X, Y, w: elbo_sharded.sharded_neg_elbo(m, X, Y, w, SVGP_N, mesh),
+                     Adam(1e-2))
+    state = elbo_sharded.TrainState(model0, Adam(1e-2).init(model0))
+
+    def steps(state, n):
+        for _ in range(n):
+            state, loss = step(state, Xs, Ys, ws)
+        return state, loss
+
+    state, _ = steps(state, 10)
+    (_, loss), secs = _timed(lambda: steps(state, PARALLEL_STEPS), dev)
+    if not torch.isfinite(loss):
+        raise AssertionError("non-finite loss after the timed sharded steps")
+    out["elbo"]["steps_per_s"] = PARALLEL_STEPS / secs
+
+    if world > 1:
+        _reset_launch_counts()
+        res, secs = _timed(lambda: svgp_trainer.train_svgp_minibatched(
+            model0, Xn, Yn, mesh=mesh, **SVGP_TRAIN), dev)
+        launches = {k: v for k, v in _launch_counts().items() if k.startswith("svgp_gram")}
+        q = svgp_route_quality("kernel", model0, res.model, res.iters, res.elbo, launches, secs,
+                               goldens32, dev)
+        bad = compare_svgp_route("kernel", q, dev.type, goldens, goldens32)
+        if bad:
+            raise AssertionError(f"the SVGP trained on the mesh does not match the goldens: {bad}")
+        if not _gathered_equal(ravel(res.model), mesh):
+            raise AssertionError("the ranks' models differ after the sharded training")
+        out["train"] = dict(seconds=secs, iters=q["iters"], launches=launches,
+                            elbo_final=q["elbo_final"],
+                            distances=_route_distances("kernel", q, goldens32))
+
+
+def dense_nll_value_grad(K, y, noise):
+    """The GPR NLL of (K + σ²I, y) and its closed-form gradients (dK, dy,
+    dσ²) through torch.linalg on K's device and dtype: the dense reference
+    of `sharded_gpr_nll`."""
+    n = K.shape[0]
+    L = torch.linalg.cholesky(K + noise * torch.eye(n, dtype=K.dtype, device=K.device))
+    a = torch.linalg.solve_triangular(L, y, upper=False)
+    value = (0.5 * torch.sum(a * a) + torch.sum(torch.log(torch.diagonal(L)))
+             + 0.5 * n * float(np.log(2 * np.pi)))
+    W = torch.cholesky_inverse(L)
+    alpha = W @ y
+    return (value.reshape(1), 0.5 * (W - alpha @ alpha.T), alpha,
+            (0.5 * (torch.trace(W) - torch.sum(alpha * alpha))).reshape(1))
+
+
+def _parallel_dist_cholesky(mesh, world, refs, out):
+    """(b) sharded_gpr_nll at N = DIST_N, both layouts, against the dense
+    torch.linalg value+grad on the card and CPU float64 copies (computed at
+    world 1; world 2 gets their value, dy and dσ² in `refs`)."""
+    from portfoliooptgp_tpu_torch.parallel import dist_cholesky as dc
+
+    N, nb, dev = DIST_N, DIST_NB, mesh.device
+    g = torch.Generator(device=dev).manual_seed(5)
+    A = torch.randn(N, N, generator=g, device=dev)
+    K = A @ A.T / N + 0.5 * torch.eye(N, device=dev)
+    y = torch.randn(N, 1, generator=g, device=dev)
+    del A
+    noise = 0.1
+    dense = dense_nll_value_grad(K, y, noise)
+    if world == 1:
+        t0 = time.perf_counter()
+        value, dK, dy, dnoise = dense_nll_value_grad(K.double().cpu(), y.double().cpu(), noise)
+        out["cpu64_seconds"] = time.perf_counter() - t0
+        refs = dict(value=value, dK=dK, dy=dy, dnoise=dnoise)
+    out["dist"] = {}
+    for layout in dc.LAYOUTS:
+        def rows(x):
+            return dc.shard_rows(x, mesh, nb, layout)
+
+        Kl, yl = rows(K).requires_grad_(True), rows(y).requires_grad_(True)
+        nz = torch.tensor(noise, device=dev, requires_grad=True)
+        nll, fwd_s = _timed(lambda: dc.sharded_gpr_nll(Kl, yl, nz, mesh, nb, layout), dev)
+        (dK, dy, dn), bwd_s = _timed(lambda: torch.autograd.grad(nll, (Kl, yl, nz)), dev)
+        got = [nll.detach().reshape(1), dK, dy, dn.reshape(1)]
+        name = f"sharded_gpr_nll {layout} world {world}"
+        errs = dict(value=_check_values(name, got[0], dense[0]),
+                    grads=_check_grads(name, got[1:], [rows(dense[1]), rows(dense[2]), dense[3]]))
+        cpu = [x.detach().double().cpu() for x in got]
+        errs["value64"] = _check_values(name + " vs CPU float64", cpu[0], refs["value"])
+        pairs = [(cpu[2], rows(refs["dy"])), (cpu[3], refs["dnoise"])]
+        if "dK" in refs:
+            pairs.insert(0, (cpu[1], rows(refs["dK"])))
+        errs["grads64"] = _check_grads(name + " vs CPU float64", *zip(*pairs))
+        out["dist"][layout] = dict(forward_s=fwd_s, backward_s=bwd_s, **errs)
+    return refs
+
+
+def _parallel_walk(mesh, out):
+    """(c) the restart-sharded walk-forward against the unsharded run."""
+    from portfoliooptgp_tpu_torch import kernels as tk
+    from portfoliooptgp_tpu_torch.models import gpr
+    from portfoliooptgp_tpu_torch.ops import stationary_nll as st
+    from portfoliooptgp_tpu_torch.parallel.mesh import make_mesh
+    from portfoliooptgp_tpu_torch.params import tree_leaves
+    from portfoliooptgp_tpu_torch.pipelines import walk_forward as wf
+
+    c = PARALLEL_WALK
+    rng = np.random.default_rng(0)
+    t = np.linspace(0, 8, c["n"])
+    X = np.column_stack([np.sin(t) + 0.1 * rng.normal(size=c["n"]), t])
+    Y = (np.sin(t) + 0.08 * rng.normal(size=c["n"]))[:, None]
+    rmesh = make_mesh(data=1, restart=mesh.size, device=mesh.device)
+
+    def run(m, maxiter=c["maxiter"]):
+        return wf.batched_walk_forward(
+            X, Y, c["n_train"], lambda v: gpr.GPR.create(tk.composite_kernel(2, device=mesh.device),
+                                                          v),
+            n_days=c["n_days"], restart_noise_inits=c["restarts"], maxiter=maxiter,
+            mesh=m, device=mesh.device)
+
+    start, whole_start = run(rmesh, 0), run(None, 0)
+    for a, b in zip((start.losses, start.f_mean, start.f_var, *tree_leaves(start.models)),
+                    (whole_start.losses, whole_start.f_mean, whole_start.f_var,
+                     *tree_leaves(whole_start.models))):
+        if not torch.equal(a, b):
+            raise AssertionError("the restart-sharded walk-forward's start differs from the "
+                                 "unsharded one")
+    before = dict(st.LAUNCHES)
+    sharded, secs = _timed(lambda: run(rmesh), mesh.device)
+    launches = {k: st.LAUNCHES[k] - before[k] for k in before}
+    whole = run(None)
+    dist = {}
+    for name, (rtol, atol) in PARALLEL_WALK_LIMITS.items():
+        a, b = getattr(sharded, name), getattr(whole, name)
+        dist[name] = float(torch.max(torch.abs(a - b) / (atol + rtol * torch.abs(b))))
+        if not dist[name] <= 1.0:
+            raise AssertionError(f"restart-sharded walk-forward {name} {a.tolist()} against "
+                                 f"the unsharded {b.tolist()}")
+    if mesh.device.type == "cuda" and launches["stationary_nll_general"] == 0:
+        raise AssertionError("the restart-sharded walk-forward launched no stationary kernel")
+    out["walk"] = dict(seconds=secs, launches=launches, rows=c["n_days"] * len(c["restarts"]),
+                       rows_per_rank=c["n_days"] * len(c["restarts"]) // mesh.size,
+                       distance=dist)
+
+
+def _parallel_nuts(mesh, world, out):
+    """(d) NUTS with the adaptation pooled over the data axis."""
+    from portfoliooptgp_tpu_torch import kernels as tk
+    from portfoliooptgp_tpu_torch.inference import (centered_normal_logprior,
+                                                    gpr_logdensity_pair, gpr_logdensity_vg,
+                                                    sample_nuts)
+    from portfoliooptgp_tpu_torch.models import gpr
+    from portfoliooptgp_tpu_torch.ops import stationary_nll as st
+    from portfoliooptgp_tpu_torch.parallel.mesh import DATA_AXIS, stream_seed
+    from portfoliooptgp_tpu_torch.params import tree_leaves
+
+    dev = mesh.device
+    o = dict(device=dev, dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    X = torch.tensor(np.sort(rng.uniform(0, 30, (128, 1)), axis=0), **o)
+    Y = torch.tensor(rng.normal(size=(128, 1)), **o)
+    m0 = gpr.GPR.create(tk.SquaredExponential.create(1.0, 5.0, **o), noise_variance=0.1)
+    prior = centered_normal_logprior(m0)
+    logp, _ = gpr_logdensity_pair(X, Y, prior)
+    vg = gpr_logdensity_vg(X, Y, prior)
+    seed = stream_seed(0, mesh.index(DATA_AXIS))
+
+    def run(**kw):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return sample_nuts(logp, m0, gen, vg_fn=vg, device=dev, **PARALLEL_NUTS, **kw)
+
+    before = dict(st.LAUNCHES)
+    (samples, stats), secs = _timed(lambda: run(axis_name=DATA_AXIS, mesh=mesh), dev)
+    launches = {k: st.LAUNCHES[k] - before[k] for k in before}
+    draws = torch.cat([x.reshape(x.shape[0], x.shape[1], -1) for x in tree_leaves(samples)], -1)
+    if not torch.all(torch.isfinite(draws)):
+        raise AssertionError("cross-rank NUTS drew non-finite values")
+    if not (_gathered_equal(stats.step_size, mesh) and _gathered_equal(stats.inv_mass, mesh)):
+        raise AssertionError("the ranks adapted different step sizes or metrics")
+    if world == 1:
+        alone, _ = run()
+        if not all(torch.equal(a, b) for a, b in zip(tree_leaves(samples), tree_leaves(alone))):
+            raise AssertionError("NUTS on a one-rank mesh drew other numbers than without one")
+    out["nuts"] = dict(seconds=secs, launches=launches,
+                       draws_per_s=PARALLEL_NUTS["num_chains"] * (
+                           PARALLEL_NUTS["num_warmup"] + PARALLEL_NUTS["num_samples"]) / secs,
+                       step_size=float(stats.step_size[0]),
+                       mean_accept=float(stats.accept_prob.mean()))
+
+
+def _parallel_mc(mesh, out):
+    """(e) the sharded MC estimate against the one-device estimate."""
+    from portfoliooptgp_tpu_torch.portfolio import montecarlo as mc
+
+    c = PARALLEL_MC
+    cov = 1e-4 * (0.5 * np.eye(3) + 0.5)
+    p1 = mc.probability_a_greater_than_b_mvnorm(c["mu_a"], cov, c["mu_b"], cov, c["n"],
+                                                device=mesh.device)
+    p2 = mc.probability_a_greater_than_b_mvnorm_sharded(c["mu_a"], cov, c["mu_b"], cov, mesh,
+                                                        c["n"])
+    if not (abs(p1 - p2) < c["atol"] and 0.0 < p2 < 1.0):
+        raise AssertionError(f"sharded MC {p2} vs one-device {p1}")
+    out["mc"] = dict(one_device=p1, sharded=p2)
+
+
+def parallel_rank(rank, world, out_dir, refs, device="cuda"):
+    """Phase 13's checks on one rank (a world of `world` ranks) on `device`
+    ("cpu" for a rehearsal)."""
+    from portfoliooptgp_tpu_torch.parallel import dryrun
+    from portfoliooptgp_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(device=device)
+    with open(svgp_goldens_path()) as fh:
+        goldens = json.load(fh)
+    with open(svgp_goldens_path(True)) as fh:
+        goldens32 = json.load(fh)
+    out = dict(device=str(mesh.device), backend=torch.distributed.get_backend())
+    t0 = time.perf_counter()
+    _parallel_elbo(mesh, world, goldens, goldens32, out)
+    out["seconds_elbo"] = time.perf_counter() - t0
+    refs = _parallel_dist_cholesky(mesh, world, refs, out)
+    if world > 1:
+        _parallel_walk(mesh, out)
+    _parallel_nuts(mesh, world, out)
+    if world > 1:
+        _parallel_mc(mesh, out)
+    t1 = time.perf_counter()
+    out["dryrun"] = dryrun.checks(rank, world, device=device)
+    out["dryrun"]["seconds"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    torch.save(dict(out=out, refs={k: v for k, v in refs.items() if k != "dK"}),
+               os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def phase_parallel():
+    """Phase 13, parallel/ across ranks (`parallel_rank` in spawned
+    processes, world 1 on NCCL and world 2 on gloo with both ranks on the
+    card): (a) `sharded_neg_elbo` on bench.py's first batch (2048 rows, a
+    rank's share) against the one-device `gaussian_elbo_gram_fused(
+    use_pallas=True)` at phase 10's tolerances, one gram kernel pair per
+    rank and value+grad, sharded Adam steps per second; at world 2 the
+    trainer on the mesh (60 steps) against the goldens (`compare_svgp_route`,
+    route (ii)) with the ranks' models equal; (b) `sharded_gpr_nll` at N =
+    8192, block 128, both layouts, against the dense torch.linalg value+grad
+    on the card and CPU float64 copies, forward and backward seconds; (c) at
+    world 2 the restart-sharded walk-forward (5 days × 2 restarts, N = 77,
+    the tile kernel) against the unsharded run (PARALLEL_WALK_LIMITS; its
+    start bit for bit); (d) NUTS, 4 chains a rank,
+    20 + 20 transitions on smoke_tpu's C = 8, N = 128 posterior shape, the
+    ranks' adapted step size and metric equal, and at world 1 the draws of
+    the run without a mesh; (e) at world 2 the sharded MC estimate within
+    MC error of the one-device one; then `dryrun_multichip`'s six checks
+    (parallel/dryrun.checks) as the ranks' code, on NCCL at world 1 and on
+    gloo at world 2."""
+    from portfoliooptgp_tpu_torch.parallel.distributed import spawn
+
+    t0 = time.perf_counter()
+    results, refs = {}, {}
+    for world, backend in PARALLEL_WORLDS:
+        out_dir = tempfile.mkdtemp(prefix="phase13-")
+        t1 = time.perf_counter()
+        spawn(parallel_rank, world, out_dir, refs, device="cuda", backend=backend,
+              timeout_s=300)
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                 for r in range(world)]
+        refs = ranks[0]["refs"]
+        results[world] = [r["out"] for r in ranks]
+        print(f"phase 13 world {world} ({backend}): {time.perf_counter() - t1:.2f} s", flush=True)
+        for r, o in enumerate(results[world]):
+            e = o["elbo"]
+            print(f"  rank {r} on {o['device']} ({o['backend']}): sharded ELBO value rel err "
+                  f"{e['value_err']:.3e}, grad normalized err {e['grad_err']:.3e} against the "
+                  f"one-device kernel route; gram launches per value+grad {e['launches']}; "
+                  f"{e['steps_per_s']:.2f} sharded Adam steps/s at local batch "
+                  f"{e['local_batch']}", flush=True)
+            for layout, d in o["dist"].items():
+                print(f"  rank {r} sharded_gpr_nll N={DIST_N} nb={DIST_NB} {layout}: forward "
+                      f"{d['forward_s']:.3f} s, backward {d['backward_s']:.3f} s; value rel err "
+                      f"{d['value']:.3e} (card f32 dense), {d['value64']:.3e} (CPU f64); grads "
+                      f"{d['grads']:.3e}, {d['grads64']:.3e}", flush=True)
+            if "train" in o:
+                t = o["train"]
+                print(f"  rank {r} trainer on the mesh: {t['iters']} steps in "
+                      f"{t['seconds']:.2f} s, launches {t['launches']}, ELBO "
+                      f"{t['elbo_final']:.6g}; goldens MATCH", flush=True)
+            if "walk" in o:
+                w = o["walk"]
+                print(f"  rank {r} restart-sharded walk-forward: {w['rows_per_rank']} of "
+                      f"{w['rows']} rows, {w['seconds']:.2f} s, launches {w['launches']}; the "
+                      "start equals the unsharded run's bit for bit, the trained rows at "
+                      "|err| / limit " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                                  w["distance"].items()), flush=True)
+            n = o["nuts"]
+            print(f"  rank {r} NUTS: {n['seconds']:.2f} s, {n['draws_per_s']:.1f} draws/s, "
+                  f"launches {n['launches']}, step size {n['step_size']:.4g}, accept "
+                  f"{n['mean_accept']:.3f}", flush=True)
+            if "mc" in o:
+                print(f"  rank {r} sharded MC {o['mc']['sharded']:.4f} vs one-device "
+                      f"{o['mc']['one_device']:.4f}", flush=True)
+            d = o["dryrun"]
+            print(f"  rank {r} dryrun_multichip checks on {backend}: mesh {d['mesh']}, ELBO "
+                  f"step loss {d['elbo_step_loss']:.4f}, dist_chol NLL "
+                  f"{d['dist_chol_nll']:.4f}, NUTS accept {d['mean_accept']:.2f}, "
+                  f"{d['seconds']:.2f} s", flush=True)
+        if world == 1:
+            print(f"  CPU float64 dense reference: {results[1][0]['cpu64_seconds']:.2f} s",
+                  flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"phase 13 parallel: {seconds:.2f} s", flush=True)
+    return dict(results=results, seconds=seconds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
@@ -4094,6 +4512,7 @@ def main() -> int:
     svgp = phase_svgp()
     nuts = phase_nuts()
     cli = phase_cli()
+    par = phase_parallel()
     errs["blocked_panel"] = max(errs["blocked_panel"], cli["panel_err"])
     errs["stationary_nll_general"] = max(errs["stationary_nll_general"], nuts["max_abs_err"])
     errs["stationary_nll"] = max(errs["stationary_nll"], nuts["max_abs_err_single"])
@@ -4163,7 +4582,16 @@ def main() -> int:
             replaces=f"portfoliooptgp_tpu/ops/pallas/svgp_gram.py:{line}",
             launches=svgp["launches"][name], max_abs_err=gram["max_abs_err"][tag],
             **gram_entry(tm[(SVGP_M, SVGP_BATCH)], tag),
-            at_128x8192=gram_entry(tm[(128, 8192)], tag)))
+            at_128x8192=gram_entry(tm[(128, 8192)], tag),
+            launches_sharded_value_grad={f"world{w}": [o["elbo"]["launches"][name] for o in rs]
+                                         for w, rs in par["results"].items()},
+            launches_sharded_trainer=[o["train"]["launches"][name]
+                                      for o in par["results"][2]]))
+    kernels[0]["launches_sharded_walk_forward"] = [
+        o["walk"]["launches"]["stationary_nll_general"] for o in par["results"][2]]
+    kernels[1]["launches_sharded_nuts"] = {
+        f"world{w}": [o["nuts"]["launches"]["stationary_nll"] for o in rs]
+        for w, rs in par["results"].items()}
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

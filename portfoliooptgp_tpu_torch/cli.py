@@ -22,8 +22,12 @@ Where the two packages differ:
   functions only, not every forward operation;
 - `--profile LOGDIR` writes a `torch.profiler` Chrome trace
   (utils/profiling.py) instead of an XPlane trace;
-- `svgp --mesh` raises: the data-parallel ELBO is not ported (ROADMAP.md
-  queue 1 item 8);
+- `svgp --mesh` splits the rows over the ranks of the process group
+  (parallel/distributed.py reads its rendezvous from the environment, as
+  `torchrun --nproc-per-node=N -m portfoliooptgp_tpu_torch svgp --mesh`
+  sets it: NCCL on the card, one card a rank, gloo with `--device cpu`),
+  or over this one process when no group is given; only rank 0 prints
+  and writes `--metrics`;
 - there is no compile cache to enable: the CUDA kernels are built once
   into `build/kernels/`;
 - `nuts` draws from a `torch.Generator` seeded by the config's seed
@@ -229,17 +233,19 @@ def cmd_svgp(args):
     from portfoliooptgp_tpu_torch.data.handler import DataHandler
     from portfoliooptgp_tpu_torch.models import svgp
     from portfoliooptgp_tpu_torch.models.likelihoods import Gaussian
-    from portfoliooptgp_tpu_torch.parallel import elbo_sharded
+    from portfoliooptgp_tpu_torch.parallel import distributed, elbo_sharded
+    from portfoliooptgp_tpu_torch.parallel import mesh as mesh_mod
     from portfoliooptgp_tpu_torch.train.optim import Adam
     from portfoliooptgp_tpu_torch.utils.metrics import MetricsLogger
 
-    if args.mesh:
-        raise NotImplementedError(
-            "svgp --mesh (the data-parallel ELBO over all devices) is not ported yet: "
-            "ROADMAP.md queue 1 item 8")
     cfg = _load_config(args)
     place = _placement(args)
-    log = MetricsLogger(path=args.metrics)
+    mesh = None
+    if args.mesh:
+        place["device"] = distributed.initialize(device=place["device"])
+        mesh = mesh_mod.make_mesh(device=place["device"])
+    primary = distributed.is_primary()
+    log = MetricsLogger(path=args.metrics if primary else None)
     dh = DataHandler(cfg.data.train_start_date, cfg.data.train_end_date,
                      cfg.data.test_start_date, cfg.data.test_end_date,
                      data_root=cfg.data.data_root, **place)
@@ -251,9 +257,12 @@ def cmd_svgp(args):
         km.SquaredExponential.create(**place), inducing_points=Z,
         likelihood=Gaussian.create(1e-4, **place), **place,
     )
-    w = torch.ones((X.shape[0],), dtype=X.dtype, device=X.device)
+    if mesh is not None:
+        Xs, Ys, w = elbo_sharded.prepare_global_batch(mesh, X, Y)
+    else:
+        Xs, Ys, w = X, Y, torch.ones((X.shape[0],), dtype=X.dtype, device=X.device)
     init_fn, step_fn = elbo_sharded.make_elbo_train_step(
-        num_data=X.shape[0], optimizer=Adam(args.lr)
+        num_data=X.shape[0], mesh=mesh, optimizer=Adam(args.lr)
     )
     state = init_fn(model)
     profiling = bool(getattr(args, "profile", None))
@@ -261,7 +270,7 @@ def cmd_svgp(args):
 
     for step in range(args.steps):
         t0 = _time.perf_counter()
-        state, loss = step_fn(state, X, Y, w)
+        state, loss = step_fn(state, Xs, Ys, w)
         if profiling:
             # per-step ELBO timing into the metrics JSONL; float() waits for
             # the device result, so the time is real
@@ -269,8 +278,10 @@ def cmd_svgp(args):
                     neg_elbo=float(loss))
         if step % 50 == 0:
             log.log("neg_elbo", float(loss), step=step)
-            print(f"step {step}: neg-ELBO {float(loss):.4f}")
-    print(f"final neg-ELBO {float(loss):.4f}")
+            if primary:
+                print(f"step {step}: neg-ELBO {float(loss):.4f}")
+    if primary:
+        print(f"final neg-ELBO {float(loss):.4f}")
 
 
 def cmd_frontier(args):
@@ -389,7 +400,8 @@ def main(argv=None):
     p.add_argument("--inducing", type=int, default=20)
     p.add_argument("--steps", type=int, default=500)
     p.add_argument("--lr", type=float, default=1e-2)
-    p.add_argument("--mesh", action="store_true", help="shard over all devices")
+    p.add_argument("--mesh", action="store_true",
+                   help="split the rows over the ranks of the process group")
     p.set_defaults(fn=cmd_svgp)
 
     p = sub.add_parser("frontier", help="multi-output GP posterior -> efficient frontier")

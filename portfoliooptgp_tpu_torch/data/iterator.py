@@ -1,6 +1,6 @@
 """Host-side minibatch iterator with background staging.
 
-Port of portfoliooptgp_tpu/data/iterator.py without a mesh:
+Port of portfoliooptgp_tpu/data/iterator.py:
 
 - each epoch is shuffled on the host by `np.random.default_rng(seed)`, so
   for a given seed the index stream is the JAX package's and both train on
@@ -12,7 +12,11 @@ Port of portfoliooptgp_tpu/data/iterator.py without a mesh:
   trainer skips exactly;
 - a daemon thread shuffles, slices, pads and stacks up to `prefetch` host
   batches ahead through a bounded queue; the consumer copies each to the
-  device.
+  device;
+- with a mesh every rank runs the same stream (the same permutation from
+  `seed`) and yields its row shard of each global batch over the data
+  axis, as JAX places a batch sharded over DATA_AXIS: rank i of D takes
+  rows [i·b/D, (i+1)·b/D) of the batch (of each inner batch of a group).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from portfoliooptgp_tpu_torch.device import DEFAULT_DEVICE, DEFAULT_DTYPE, resolve_device
+from portfoliooptgp_tpu_torch.parallel.mesh import DATA_AXIS
 
 
 def _host(a, dtype):
@@ -38,25 +43,25 @@ class MinibatchIterator:
 
     Args:
       X, Y: (N, D) / (N, P) arrays or tensors (copied to the host once).
-      batch_size: rows per step.
-      mesh: must be None; the sharded feed is ROADMAP.md queue 1 item 8.
+      batch_size: rows per step (of the global batch); with a mesh it must
+        divide by the data-axis size.
+      mesh: optional (parallel/mesh.py) — yield this rank's row shard of
+        each batch, on the mesh's device.
       num_epochs: None cycles forever.
       shuffle/seed: per-epoch permutation, deterministic per seed.
       drop_remainder: skip the last partial batch instead of padding it.
       prefetch: host batches staged ahead by the background thread.
       inner_steps: stack this many batches into one (k, batch_size, ...)
         group; the tail group is filled with all-zero batches.
-      device, dtype: where and as what the batches are delivered.
+      device, dtype: where and as what the batches are delivered (with a
+        mesh, on the mesh's device).
     """
 
     def __init__(self, X, Y, batch_size: int, *, mesh=None, num_epochs: Optional[int] = None,
                  shuffle: bool = True, seed: int = 0, drop_remainder: bool = False,
                  prefetch: int = 2, inner_steps: int = 1, device=DEFAULT_DEVICE,
                  dtype=DEFAULT_DTYPE):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sharded feed over a mesh is not ported yet: ROADMAP.md queue 1 item 8")
-        self._device = resolve_device(device)
+        self._device = resolve_device(device) if mesh is None else mesh.device
         self._X = _host(X, dtype)
         self._Y = _host(Y, dtype)
         if self._X.shape[0] != self._Y.shape[0]:
@@ -65,6 +70,15 @@ class MinibatchIterator:
         if batch_size <= 0:
             raise ValueError("batch_size must be positive")
         self._bs = int(batch_size)
+        self._shard = None
+        if mesh is not None:
+            n_shards = mesh.shape[DATA_AXIS]
+            if self._bs % n_shards:
+                raise ValueError(
+                    f"batch_size={batch_size} must divide the data axis ({n_shards})")
+            local = self._bs // n_shards
+            self._shard = slice(mesh.index(DATA_AXIS) * local,
+                                (mesh.index(DATA_AXIS) + 1) * local)
         if inner_steps < 1:
             raise ValueError("inner_steps must be >= 1")
         self._k = int(inner_steps)
@@ -152,6 +166,9 @@ class MinibatchIterator:
         item = self._queue.get()
         if item is None:
             raise StopIteration
+        if self._shard is not None:
+            rows = (self._shard,) if self._k == 1 else (slice(None), self._shard)
+            item = tuple(np.ascontiguousarray(a[rows]) for a in item)
         return tuple(torch.from_numpy(a).to(self._device) for a in item)
 
     def close(self):

@@ -11,9 +11,10 @@ here it is explicit, and `grad_fn` / `logp_fn` take (C, dim) and return
 - dual-averaging step-size adaptation (Nesterov / Hoffman-Gelman) and
   mass-matrix estimation by Welford accumulators;
 - the JAX package's cross-chain pooling of the Welford moments (its
-  `axis_name` psum) is `welford_variance(..., pool=True)`, a combine over
-  the chain axis. Pooling across devices (a real `axis_name`) raises:
-  ROADMAP.md queue 1 item 8 (the multi-device paths).
+  `axis_name` psum over a vmapped chain axis) is `welford_variance(...,
+  pool=True)`, a combine over the chain axis; its psum across devices is
+  `axis_name` resolved against a mesh (parallel/mesh.py), an all-reduce
+  over that axis's ranks.
 
 Random draws come from a source (inference/source.py), one stream per
 chain.
@@ -28,6 +29,7 @@ import torch
 
 from portfoliooptgp_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from portfoliooptgp_tpu_torch.ops import linalg
+from portfoliooptgp_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 def _col(x):
@@ -100,25 +102,43 @@ def welford_update(state: WelfordState, x) -> WelfordState:
     return WelfordState(mean, m2, count)
 
 
+def pooled_mean(x, pool: bool, mesh=None, axis_name: Optional[str] = None):
+    """The mean of per-chain values x (C, ...) over the chains (with `pool`;
+    then of shape (1, ...)) and over the ranks of `axis_name` on `mesh` (if
+    given): the JAX package's pmean over its adaptation axes."""
+    if pool:
+        x = torch.mean(x, dim=0, keepdim=True)
+    if axis_name is not None:
+        x = all_reduce_sum([x], mesh, axis_name)[0] / mesh.shape[axis_name]
+    return x
+
+
 def welford_variance(state: WelfordState, axis_name: Optional[str] = None,
-                     regularize: bool = True, pool: bool = False):
+                     regularize: bool = True, pool: bool = False, mesh=None):
     """Per-chain variance estimate (C, dim) or covariance (C, dim, dim).
     With `pool`, the chains' moments are combined, Σ m2ᵢ + Σ nᵢ(meanᵢ −
     mean)⊗² over count × C, and every chain gets the pooled estimate (the
-    JAX package's psum over a vmapped chain axis)."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "pooling adaptation statistics across devices is not ported: ROADMAP.md "
-            "queue 1 item 8 (the multi-device paths)")
+    JAX package's psum over a vmapped chain axis). With `axis_name` (an
+    axis of `mesh`) the moments are combined the same way over that
+    axis's ranks as well (the JAX package's psum across devices)."""
+    if axis_name is not None and mesh is None:
+        raise ValueError("axis_name names an axis of a mesh: pass mesh=")
     mean, m2, count = state.mean, state.m2, state.count
     dense = m2.ndim == 3
-    if pool:
-        total = count * mean.shape[0]
-        d = mean - mean.mean(dim=0, keepdim=True)
+    if pool or axis_name is not None:
+        n_set = (mean.shape[0] if pool else 1) * (
+            mesh.shape[axis_name] if axis_name is not None else 1)
+        gmean = pooled_mean(mean, pool, mesh, axis_name)
+        d = mean - gmean
         between = d[:, :, None] * d[:, None, :] if dense else d * d
         scale = count[:, None, None] if dense else count[:, None]
-        m2 = torch.sum(m2 + scale * between, dim=0, keepdim=True).expand_as(m2)
-        count = total
+        m2 = m2 + scale * between
+        if pool:
+            m2 = torch.sum(m2, dim=0, keepdim=True)
+        if axis_name is not None:
+            m2 = all_reduce_sum([m2], mesh, axis_name)[0]
+        m2 = m2.expand_as(state.m2)
+        count = count * n_set
     denom = torch.clamp_min(count - 1.0, 1.0)
     var = m2 / (denom[:, None, None] if dense else denom[:, None])
     if regularize:

@@ -6,6 +6,12 @@ out) and an initial model; it returns posterior samples with leading
 [chain, draw] axes. The JAX package vmaps one chain's program over the
 chain axis; here the chain axis is the model batch axis, so one
 log-density call evaluates every chain (for a GPR, one batched NLL).
+
+Across ranks (the JAX package's `axis_name` inside a `shard_map`), each
+rank runs its own chains from its own random source, and `axis_name`
+names the mesh axis (parallel/mesh.py) over whose ranks the adaptation is
+pooled: the geometric mean of the initial step size, the acceptance
+statistic and the Welford moments, one all-reduce each.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from portfoliooptgp_tpu_torch.inference import hmc as hmc_mod
 from portfoliooptgp_tpu_torch.inference import nuts as nuts_mod
 from portfoliooptgp_tpu_torch.inference.source import GeneratorSource
 from portfoliooptgp_tpu_torch.params import ravel, tree_leaves, tree_replace, tree_to, unravel
+from portfoliooptgp_tpu_torch.parallel.mesh import stream_seed
 
 
 def centered_normal_logprior(init_params, scale: float = 2.0):
@@ -61,9 +68,12 @@ def _warmup_and_sample_flat(
     grad_fn: Optional[Callable] = None,
     vg_fn: Optional[Callable] = None,
     dense_mass: bool = False,
+    mesh=None,
+    axis_name: Optional[str] = None,
 ):
     """Warmup and sampling of C chains from q0 (C, dim); with `pool` the
-    adaptation statistics are shared by the chains."""
+    adaptation statistics are shared by the chains, with `axis_name` by the
+    ranks of that axis of `mesh`."""
     if grad_fn is None:
         grad_fn = lambda z: vg_fn(z)[1]  # noqa: E731
     if vg_fn is None:
@@ -77,11 +87,12 @@ def _warmup_and_sample_flat(
     chol = hmc_mod.mass_chol(inv_mass)
     key, k_eps = key.split(2)
     eps0 = hmc_mod.find_reasonable_step_size(logp_fn, grad_fn, q0, inv_mass, k_eps)
-    if pool:
+    shared = pool or axis_name is not None
+    if shared:
         # shared adaptation: the geometric-mean initial step, so every
         # lockstep chain adapts the SAME step size (per-chain steps make
         # every chain pay for the deepest tree in the batch)
-        eps0 = torch.exp(torch.mean(torch.log(eps0))).expand(C)
+        eps0 = torch.exp(hmc_mod.pooled_mean(torch.log(eps0), pool, mesh, axis_name)).expand(C)
     da = hmc_mod.da_init(eps0)
     wf = hmc_mod.welford_init(dim, dtype, dense=dense_mass, chains=C, device=dev)
 
@@ -95,13 +106,13 @@ def _warmup_and_sample_flat(
             vg_fn, q, logp, k_step, torch.exp(da.log_step), inv_mass, max_depth,
             grad0=grad, mass_chol_factor=chol)
         accept = info.accept_prob
-        if pool:
-            accept = torch.mean(accept).expand(C)
+        if shared:
+            accept = hmc_mod.pooled_mean(accept, pool, mesh, axis_name).expand(C)
         da = hmc_mod.da_update(da, accept, target=target_accept)
         if mass_start <= i < mass_end:
             wf = hmc_mod.welford_update(wf, q)
         if i == mass_end:
-            inv_mass = hmc_mod.welford_variance(wf, pool=pool)
+            inv_mass = hmc_mod.welford_variance(wf, axis_name, pool=pool, mesh=mesh)
             chol = hmc_mod.mass_chol(inv_mass)
             da = hmc_mod.da_init(torch.exp(da.log_step))
     eps_final = torch.exp(da.log_step_avg)
@@ -127,9 +138,9 @@ def _warmup_and_sample_flat(
     return qs, stats
 
 
-def _source(source, chains: int, device):
+def _source(source, chains: int, device, seed: int = 0):
     if source is None:
-        source = torch.Generator(device=device).manual_seed(0)
+        source = torch.Generator(device=device).manual_seed(seed)
     if isinstance(source, torch.Generator):
         return GeneratorSource(chains, source)
     return source
@@ -150,6 +161,7 @@ def sample_nuts(
     share_adaptation: bool = True,
     dense_mass: bool = False,
     *,
+    mesh=None,
     device=DEFAULT_DEVICE,
 ):
     """Sample a model's hyperposterior with C = `num_chains` lockstep NUTS
@@ -174,16 +186,19 @@ def sample_nuts(
 
     `share_adaptation` (default True) pools the step-size and mass
     statistics over the chains: lockstep chains with per-chain step sizes
-    make every chain pay for the deepest tree in the batch. `axis_name`
-    (pooling across devices) raises: ROADMAP.md queue 1 item 8.
+    make every chain pay for the deepest tree in the batch. `axis_name`, an
+    axis of `mesh` (parallel/mesh.py), pools them over that axis's ranks as
+    well, each rank running its own C chains on the mesh's device; the
+    default source is then seeded per rank (`mesh.stream_seed(0, index)`).
 
     Returns (samples: the model tree with leaves of shape (C, S, ...),
     SampleStats)."""
+    seed = 0
     if axis_name is not None:
-        raise NotImplementedError(
-            "sampling across devices (axis_name) is not ported: ROADMAP.md queue 1 "
-            "item 8 (the multi-device paths)")
-    dev = resolve_device(device)
+        if mesh is None:
+            raise ValueError("axis_name names an axis of a mesh: pass mesh=")
+        seed = stream_seed(0, mesh.index(axis_name))
+    dev = resolve_device(device) if mesh is None else mesh.device
     template = tree_to(init_params, dev, tree_leaves(init_params)[0].dtype)
     template = tree_replace(template, [x.detach() for x in tree_leaves(template)])
     flat0 = ravel(template)  # (1, dim)
@@ -211,7 +226,7 @@ def sample_nuts(
     elif grad_fn is None:
         vg_flat = autograd_vg
 
-    key = _source(source, num_chains, dev)
+    key = _source(source, num_chains, dev, seed)
     key, k_init = key.split(2)
     with torch.no_grad():
         # jitter chain inits around the provided point
@@ -219,5 +234,5 @@ def sample_nuts(
         qs, stats = _warmup_and_sample_flat(
             logp_flat, q0, key, num_warmup, num_samples, max_depth, target_accept,
             share_adaptation and num_chains > 1, grad_fn=grad_flat, vg_fn=vg_flat,
-            dense_mass=dense_mass)
+            dense_mass=dense_mass, mesh=mesh, axis_name=axis_name)
     return unravel(template, qs), stats

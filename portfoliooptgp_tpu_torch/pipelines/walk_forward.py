@@ -14,6 +14,12 @@ N ≤ 256, the blocked tier's panel kernel (ops/blocked_nll.py) at padded
 N ≤ 1024, or the hinv tier's triangular-inverse kernel up to padded
 N = 4096 (and D·R·N² ≤ HINV_MAX_ELEMS). In float64, and past those
 windows, it is the plain masked NLL, as in the JAX package.
+
+With a mesh the D·R day×restart rows are split over one of its axes
+(`mesh_axis`, "restart" by default): each rank trains its rows with the
+same batched L-BFGS (rows are independent problems, so a row's result does
+not depend on which rows share its batch), and one all-gather returns every
+row, day-major, to every rank before the best restart per day is picked.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ from portfoliooptgp_tpu_torch.device import DEFAULT_DEVICE, DEFAULT_DTYPE, as_te
 from portfoliooptgp_tpu_torch.models import gpr as gpr_mod
 from portfoliooptgp_tpu_torch.models.gpr import GPR
 from portfoliooptgp_tpu_torch.ops import linalg
-from portfoliooptgp_tpu_torch.params import batch_size, tree_map, tree_to
+from portfoliooptgp_tpu_torch.params import batch_size, ravel, tree_map, tree_to, unravel
+from portfoliooptgp_tpu_torch.parallel import mesh as mesh_mod
 from portfoliooptgp_tpu_torch.train import batched_lbfgs, lbfgs
 
 LOG_2PI = math.log(2.0 * math.pi)
@@ -98,6 +105,7 @@ def batched_walk_forward(
     warm_start: bool = False,
     warm_maxiter: Optional[int] = None,
     mesh=None,
+    mesh_axis: str = "restart",
     device=DEFAULT_DEVICE,
     dtype=DEFAULT_DTYPE,
     **fit_kw,
@@ -112,12 +120,11 @@ def batched_walk_forward(
     warm_start=True first trains day 0's R restarts to convergence on its
     prefix, then starts every day's row from the matching day-0 optimum and
     polishes the whole D×R batch for `warm_maxiter` iterations (default
-    max(maxiter // 4, 10))."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "restart-axis sharding over a mesh is not ported yet: ROADMAP.md "
-            "queue 1 item 8 (parallel/)")
-    dev = resolve_device(device)
+    max(maxiter // 4, 10)).
+
+    mesh (parallel/mesh.py): split the D·R rows over `mesh_axis`, whose size
+    must divide D·R; the device is the mesh's."""
+    dev = resolve_device(device) if mesh is None else mesh.device
     X_full = as_tensor(X_full, dev, dtype)
     Y_full = as_tensor(Y_full, dev, dtype)
     n_full = X_full.shape[0]
@@ -143,6 +150,13 @@ def batched_walk_forward(
 
     # tile to (D*R, ...): day-major so reshape recovers (D, R)
     stacked = tree_map(lambda x: x.repeat((D,) + (1,) * (x.ndim - 1)), stacked_r)
+    if mesh is not None:
+        n_shards = mesh.shape[mesh_axis]
+        if (D * R) % n_shards:
+            raise ValueError(f"the '{mesh_axis}' axis size {n_shards} must divide the "
+                             f"walk-forward batch D*R={D * R}")
+        stacked = tree_map(lambda x: mesh_mod.shard_rows(mesh, x, mesh_axis), stacked)
+        masks_dr = mesh_mod.shard_rows(mesh, masks_dr, mesh_axis)
 
     from portfoliooptgp_tpu_torch.ops import blocked_nll as blocked_mod
     from portfoliooptgp_tpu_torch.ops import nll as nll_mod
@@ -158,7 +172,7 @@ def batched_walk_forward(
         # per-atom distance matrices and each day's prefix mask
         def batched_loss(ms):
             spec = gpr_mod.fused_stationary_spec(ms, X_full)
-            err = (Y_full[None, :, 0] - mean_rows(ms, X_full, D * R)) * masks_dr
+            err = (Y_full[None, :, 0] - mean_rows(ms, X_full, masks_dr.shape[0])) * masks_dr
             fused = (st_mod.batched_nll_stationary_sum if spec.combine == "sum"
                      else st_mod.batched_nll_stationary_general)
             nll = fused(spec.families, spec.d2s, err, spec.vs, spec.ls, spec.als,
@@ -193,9 +207,13 @@ def batched_walk_forward(
 
     trained, res = batched_lbfgs.fit_batched_fused(
         batched_loss, stacked, frozen=frozen, maxiter=maxiter, **fit_kw)
+    loss = res.loss
+    if mesh is not None:
+        trained = unravel(trained, mesh_mod.all_gather(ravel(trained), mesh, mesh_axis))
+        loss = mesh_mod.all_gather(loss, mesh, mesh_axis)
 
-    losses = torch.where(torch.isfinite(res.loss), res.loss,
-                         torch.full_like(res.loss, float("inf"))).reshape(D, R)
+    losses = torch.where(torch.isfinite(loss), loss,
+                         torch.full_like(loss, float("inf"))).reshape(D, R)
     best_r = torch.argmin(losses, dim=1)
     flat_idx = torch.arange(D, device=dev) * R + best_r
     best_models = tree_map(lambda x: x[flat_idx].detach(), trained)

@@ -15,7 +15,10 @@ from abc import ABC, abstractmethod
 import numpy as np
 
 from portfoliooptgp_tpu_torch.device import DEFAULT_DEVICE, DEFAULT_DTYPE
-from portfoliooptgp_tpu_torch.portfolio.montecarlo import probability_a_greater_than_b_mvnorm
+from portfoliooptgp_tpu_torch.portfolio.montecarlo import (
+    probability_a_greater_than_b_mvnorm,
+    probability_a_greater_than_b_mvnorm_sharded,
+)
 from portfoliooptgp_tpu_torch.portfolio.optimizer import PortfolioOptimizer
 
 
@@ -65,24 +68,29 @@ class DynamicStrategy(Strategy):
       (a reference quirk kept verbatim: the revert fires whenever tx > 0).
 
     decision="prob_threshold": estimate P(B > A) with 10k MC samples and
-    chase returns when it clears `prob_threshold`, else hold."""
+    chase returns when it clears `prob_threshold`, else hold. `mesh`
+    (parallel/mesh.py, optional): split the MC budget over its data axis
+    (`probability_a_greater_than_b_mvnorm_sharded`)."""
 
     def __init__(self, broker_fee: float = 0.0, apply_broker_fee: bool = False,
                  decision: str = "expected_return", mesh=None):
         super().__init__(broker_fee, apply_broker_fee)
         if decision not in ("expected_return", "prob_threshold"):
             raise ValueError(f"unknown dynamic decision rule: {decision!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "the mesh-sharded MC estimate is not ported yet: ROADMAP.md "
-                "queue 1 item 8: parallel/")
         self.decision = decision
+        self.mesh = mesh
 
     def probability_a_greater_than_b_mvnorm(self, mu_a, cov_a, mu_b, cov_b,
                                             num_samples=10_000, seed=0, *, draws=None,
                                             device=DEFAULT_DEVICE, dtype=DEFAULT_DTYPE):
         """P(A > B) in every dimension over two joint normals, by Monte
-        Carlo (portfolio/montecarlo.py; `draws` as there)."""
+        Carlo (portfolio/montecarlo.py; `draws` as there); with the
+        strategy's mesh, the budget split over its data axis (the
+        mesh's device and this rank's draws)."""
+        if self.mesh is not None:
+            return probability_a_greater_than_b_mvnorm_sharded(
+                mu_a, cov_a, mu_b, cov_b, self.mesh, num_samples, seed, draws=draws,
+                dtype=dtype)
         return probability_a_greater_than_b_mvnorm(mu_a, cov_a, mu_b, cov_b, num_samples,
                                                    seed, draws=draws, device=device,
                                                    dtype=dtype)

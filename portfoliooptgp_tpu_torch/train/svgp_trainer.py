@@ -46,7 +46,10 @@ def train_svgp_minibatched(model: SVGP, X, Y, *, batch_size: int, num_epochs: in
     """Adam on the minibatch negative ELBO, fed by the host-staging
     iterator in groups of `inner_steps` batches (the tail group's all-zero
     batches are skipped). X, Y may be arrays or tensors; batches are placed
-    on the model's device in its dtype. `iters` counts the real batches."""
+    on the model's device in its dtype. `iters` counts the real batches.
+    With a mesh (parallel/mesh.py) every rank calls this with the same
+    arguments: it trains on its row shard of each batch through the
+    sharded ELBO, and every rank ends with the same model."""
     frozen = lbfgs.freeze_leaves(model, likelihood=True) if freeze_likelihood else None
     init_fn, step_fn = elbo_sharded.make_elbo_train_step(
         num_data=X.shape[0], mesh=mesh, optimizer=optimizer, frozen=frozen,

@@ -373,8 +373,6 @@ def test_torch_cli_svgp_matches_jax(market, capsys, tmp_path):
     assert len(out["port"]) == 3
     np.testing.assert_allclose(out["port"][:2], out["jax"][:2], rtol=1e-8)
     assert out["port"][2] == out["jax"][2]  # printed to 4 decimals
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tcli.main(args + PORT + ["--mesh"])
 
 
 def test_torch_cli_nuts_replays_jax(market, capsys, monkeypatch):

@@ -964,3 +964,89 @@ def test_torch_cuda_minimize_simplex_rows_matches_cpu(cuda):
         assert res.weights.device.type == torch.device(dev).type
         weights.append(res.weights.cpu().numpy())
     np.testing.assert_allclose(weights[0], weights[1], atol=1e-8)
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A one-rank mesh on the card over an NCCL process group in this
+    process (a file rendezvous), destroyed after the test."""
+    import torch.distributed as dist
+
+    from portfoliooptgp_tpu_torch.parallel import distributed
+    from portfoliooptgp_tpu_torch.parallel.mesh import make_mesh
+
+    distributed.initialize("file://" + str(tmp_path / "store"), 1, 0, device="cuda",
+                           backend="nccl", timeout_s=120)
+    try:
+        yield make_mesh(device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_torch_cuda_sharded_elbo_world1_nccl(nccl_mesh):
+    """`sharded_neg_elbo` on one NCCL rank (the all-reduce pair on the card)
+    against the one-device `gaussian_elbo_gram_fused(use_pallas=True)`:
+    value rtol 3e-3, gradients normalized atol 2e-2, and one launch of each
+    gram kernel per value+grad."""
+    from portfoliooptgp_tpu_torch import kernels as tk
+    from portfoliooptgp_tpu_torch.models import svgp
+    from portfoliooptgp_tpu_torch.models.likelihoods import Gaussian
+    from portfoliooptgp_tpu_torch.ops import svgp_gram as sg
+    from portfoliooptgp_tpu_torch.parallel.elbo_sharded import sharded_neg_elbo
+    from portfoliooptgp_tpu_torch.params import tree_leaves, tree_replace
+
+    o = dict(device=nccl_mesh.device, dtype=torch.float32)
+    rng = np.random.default_rng(3)
+    X = torch.tensor(np.sort(rng.uniform(0, 1000, (2048, 1)), axis=0), **o)
+    Y = torch.sin(X / 60.0) + 0.1 * torch.tensor(rng.normal(size=(2048, 1)), **o)
+    w = torch.ones(2048, **o)
+    model = svgp.SVGP.create(tk.SquaredExponential.create(1.0, 50.0, **o),
+                             np.linspace(0, 1000, 128)[:, None],
+                             likelihood=Gaussian.create(0.1, **o), **o)
+
+    def value_grad(fn):
+        leaves = [x.detach().requires_grad_(True) for x in tree_leaves(model)]
+        v = fn(tree_replace(model, leaves))
+        return v.detach(), torch.autograd.grad(v, leaves)
+
+    want = value_grad(lambda m: -svgp.gaussian_elbo_gram_fused(m, X, Y, weights=w,
+                                                               num_data=20_000, use_pallas=True))
+    before = dict(sg.LAUNCHES)
+    got = value_grad(lambda m: sharded_neg_elbo(m, X, Y, w, 20_000, nccl_mesh))
+    torch.cuda.synchronize()
+    assert {k: sg.LAUNCHES[k] - before[k] for k in before} == {"svgp_gram_fwd": 1,
+                                                               "svgp_gram_bwd": 1}
+    torch.testing.assert_close(got[0], want[0], rtol=3e-3, atol=0)
+    for a, b in zip(got[1], want[1]):
+        scale = max(float(b.abs().max()), 1.0)
+        torch.testing.assert_close(a / scale, b / scale, rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "cyclic"])
+def test_torch_cuda_sharded_gpr_nll_world1_nccl(nccl_mesh, layout):
+    """`sharded_gpr_nll` on one NCCL rank against the dense torch.linalg
+    value and closed-form gradients on the card (N = 1024, block 128)."""
+    from portfoliooptgp_tpu_torch.parallel import dist_cholesky as dc
+
+    N, nb, noise = 1024, 128, 0.1
+    g = torch.Generator(device=nccl_mesh.device).manual_seed(1)
+    A = torch.randn(N, N, generator=g, device=nccl_mesh.device)
+    K = A @ A.T / N + 0.5 * torch.eye(N, device=nccl_mesh.device)
+    y = torch.randn(N, 1, generator=g, device=nccl_mesh.device)
+    L = torch.linalg.cholesky(K + noise * torch.eye(N, device=K.device))
+    a = torch.linalg.solve_triangular(L, y, upper=False)
+    want = 0.5 * torch.sum(a * a) + torch.sum(torch.log(torch.diagonal(L))) + 0.5 * N * np.log(
+        2 * np.pi)
+    W = torch.cholesky_inverse(L)
+    alpha = W @ y
+    Kl = dc.shard_rows(K, nccl_mesh, nb, layout).requires_grad_(True)
+    yl = dc.shard_rows(y, nccl_mesh, nb, layout).requires_grad_(True)
+    nz = torch.tensor(noise, device=K.device, requires_grad=True)
+    nll = dc.sharded_gpr_nll(Kl, yl, nz, nccl_mesh, nb, layout)
+    dK, dy, dn = torch.autograd.grad(nll, (Kl, yl, nz))
+    torch.testing.assert_close(nll.detach(), want, rtol=3e-3, atol=0)
+    for got, ref in ((dK, dc.shard_rows(0.5 * (W - alpha @ alpha.T), nccl_mesh, nb, layout)),
+                     (dy, dc.shard_rows(alpha, nccl_mesh, nb, layout)),
+                     (dn, 0.5 * (torch.trace(W) - torch.sum(alpha * alpha)))):
+        scale = max(float(ref.abs().max()), 1.0)
+        torch.testing.assert_close(got / scale, ref / scale, rtol=0, atol=2e-2)

@@ -70,12 +70,6 @@ def test_torch_welford_matches_jax(dense, regularize):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-15)
 
 
-def test_torch_welford_axis_name_raises():
-    wf = thmc.welford_init(2, chains=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        thmc.welford_variance(wf, axis_name="hosts")
-
-
 @pytest.mark.parametrize("dense", [False, True])
 def test_torch_leapfrog_gpr_posterior_matches_jax(post, dense):
     """Eight leapfrog steps from given momenta on the small GPR posterior."""

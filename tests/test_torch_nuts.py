@@ -192,12 +192,6 @@ def test_torch_nuts_nan_regions():
     assert np.all(draws[:, 0] > 0)
 
 
-def test_torch_nuts_axis_name_raises():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tsample(lambda q: -torch.sum(q**2, dim=-1), torch.zeros((1, 2), dtype=torch.float64),
-                num_warmup=1, num_samples=1, axis_name="hosts", device="cpu")
-
-
 def test_torch_ctz():
     n = torch.arange(1, 1025)
     want = [(int(k) & -int(k)).bit_length() - 1 for k in n]

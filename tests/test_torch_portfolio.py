@@ -129,7 +129,8 @@ def test_torch_volatility_and_daily_getters_match_jax(rng):
 
 def test_torch_dynamic_strategy_probability_matches_jax_with_shared_draws():
     """The strategy's method on the JAX package's draws gives its estimate;
-    a mesh still raises, naming its queue."""
+    with a mesh of one rank, the sharded estimate on the same draws gives
+    it too."""
     from portfoliooptgp_tpu.portfolio.strategies import DynamicStrategy as JDynamic
     from portfoliooptgp_tpu_torch.portfolio.strategies import DynamicStrategy as TDynamic
 
@@ -147,5 +148,8 @@ def test_torch_dynamic_strategy_probability_matches_jax_with_shared_draws():
         mu_a, cov_a, mu_b, cov_b, n, seed, draws=draws, **CPU64)
     # the same hits of the same draws (JAX averages them in float32 here)
     assert got * n == round(want * n) and 0.0 < got < 1.0
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        TDynamic(mesh=object())
+    from portfoliooptgp_tpu_torch.parallel.mesh import make_mesh
+
+    sharded = TDynamic(decision="prob_threshold", mesh=make_mesh(device="cpu"))
+    assert sharded.probability_a_greater_than_b_mvnorm(mu_a, cov_a, mu_b, cov_b, n, seed,
+                                                       draws=draws, **CPU64) == got

@@ -16,14 +16,15 @@ MODULES = {"ops/entropy.py": "ops/entropy.py", "kernels/base.py": "kernels/base.
            "models/likelihoods.py": "models/likelihoods.py",
            "native/__init__.py": "native.py",
            **{f"{pkg}/{os.path.basename(p)}": f"{pkg}/{os.path.basename(p)}"
-              for pkg in ("data", "portfolio")
+              for pkg in ("data", "portfolio", "parallel")
               for p in glob.glob(os.path.join(REPO, "portfoliooptgp_tpu", pkg, "*.py"))}}
 
 DELIBERATE = {
     # a JAX pytree registration helper; the port's models are dataclasses
     "kernels/base.py": {"pytree_dataclass"},
-    # the mesh-sharded estimate: ROADMAP.md queue 1 item 8 (parallel/)
-    "portfolio/montecarlo.py": {"probability_a_greater_than_b_mvnorm_sharded"},
+    # JAX NamedSharding builders: a rank of the port holds its rows as
+    # ordinary tensors (`shard_batch`, `shard_rows`) and the model as is
+    "parallel/mesh.py": {"data_sharding", "replicated"},
 }
 
 

@@ -92,7 +92,8 @@ def test_torch_train_svgp_minibatched_float64_matches_jax(inner_steps):
 def test_torch_make_elbo_train_step_matches_optax():
     """Three single steps of `make_elbo_train_step` with nothing frozen, the
     second on an all-zero-weight batch (still a step at inner_steps = 1, as
-    in JAX), against optax's adam."""
+    in JAX), against optax's adam; with a mesh of one rank the step is the
+    one-device step (JAX's `mesh.size > 1` rule)."""
     jm, tm = svgp_pair(M=8)
     X, Y = data(64, seed=12)
     ws = [np.ones(64), np.zeros(64), (np.arange(64) < 40).astype(float)]
@@ -104,8 +105,16 @@ def test_torch_make_elbo_train_step_matches_optax():
         ts, tloss = tstep(ts, t(X), t(Y), t(w))
         np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-10)
     assert_leaves(ts.model, js.model, rtol=1e-9)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tes.make_elbo_train_step(num_data=10, mesh=object())
+    from portfoliooptgp_tpu_torch.parallel.mesh import make_mesh
+
+    minit, mstep = tes.make_elbo_train_step(num_data=300, mesh=make_mesh(device="cpu"),
+                                            optimizer=Adam(1e-2))
+    ms = minit(tm)
+    for w in ws:
+        ms, mloss = mstep(ms, t(X), t(Y), t(w))
+    assert float(mloss) == float(tloss)
+    assert all(torch.equal(a, b) for a, b in zip(tparams.tree_leaves(ms.model),
+                                                 tparams.tree_leaves(ts.model)))
 
 
 def test_torch_train_svgp_menu_matches_jax():
