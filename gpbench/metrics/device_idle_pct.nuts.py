@@ -1,0 +1,7 @@
+"""Share of the traced window in which no operation ran on the device."""
+
+from gpbench import readers
+
+
+def read(run):
+    return readers.idle_pct(run)

@@ -1,0 +1,7 @@
+"""Device-idle milliseconds of the traced window per fused NLL evaluation."""
+
+from gpbench import readers
+
+
+def read(run):
+    return readers.host_ms_per(run, "cluster_launches")
