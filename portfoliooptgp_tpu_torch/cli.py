@@ -21,7 +21,10 @@ Where the two packages differ:
   torch mechanism to `jax_debug_nans`: it checks the outputs of backward
   functions only, not every forward operation;
 - `--profile LOGDIR` writes a `torch.profiler` Chrome trace
-  (utils/profiling.py) instead of an XPlane trace;
+  (utils/profiling.py) instead of an XPlane trace, and beside it
+  `spans.json`: each of the program's spans (`lbfgs.iteration`,
+  `router.dispatch`, `nuts.leaf`, ...) with its count and its total and
+  self milliseconds;
 - `svgp --mesh` splits the rows over the ranks of the process group
   (parallel/distributed.py reads its rendezvous from the environment, as
   `torchrun --nproc-per-node=N -m portfoliooptgp_tpu_torch svgp --mesh`

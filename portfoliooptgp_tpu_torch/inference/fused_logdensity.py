@@ -21,6 +21,7 @@ import torch
 
 from portfoliooptgp_tpu_torch.models import gpr
 from portfoliooptgp_tpu_torch.params import tree_leaves, tree_replace
+from portfoliooptgp_tpu_torch.utils.profiling import span
 
 
 def _logp(X, Y, logprior_fn):
@@ -36,13 +37,14 @@ def _logp(X, Y, logprior_fn):
 def _value_and_grad(logp, stacked):
     """(C,) values and the gradient tree of their sum, from detached leaves:
     one forward (the kernel with W, for the closed-form backward) and one
-    backward; no graph outlives the call."""
-    with torch.enable_grad():
+    backward; no graph outlives the call. The span
+    `logdensity.value_and_grad`."""
+    with span("logdensity.value_and_grad"), torch.enable_grad():
         leaves = [x.detach().requires_grad_(True) for x in tree_leaves(stacked)]
         lp = logp(tree_replace(stacked, leaves))
         grads = torch.autograd.grad(lp.sum(), leaves, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
-    return lp.detach(), tree_replace(stacked, grads)
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+        return lp.detach(), tree_replace(stacked, grads)
 
 
 def gpr_logdensity_pair(X, Y, logprior_fn: Optional[Callable] = None):

@@ -24,6 +24,10 @@ shared by the chains that are still running, so the checkpoint slots are
 Python integers. Every leaf evaluates all C chains in one `vg_fn` call;
 the loops end when no chain is active, read by one `.any()` on the host
 per leaf (and one per depth): `SYNCS` counts them.
+
+Spans (utils/profiling.py): `nuts.transition` a `nuts_step`, `nuts.leaf` a
+leaf after its host read (leapfrog and tree bookkeeping), `nuts.sync` each
+host read.
 """
 
 from __future__ import annotations
@@ -33,11 +37,19 @@ from typing import NamedTuple
 import torch
 
 from portfoliooptgp_tpu_torch.inference.hmc import _col, kinetic, sample_momentum, velocity
+from portfoliooptgp_tpu_torch.utils.profiling import span
 
 MAX_DELTA_ENERGY = 1000.0
 
 #: Host reads of the active mask: {"leaf": n, "depth": n}.
 SYNCS = {"leaf": 0, "depth": 0}
+
+
+def _any(mask, kind: str) -> bool:
+    """The host's read of whether any chain is live, counted in SYNCS[kind]."""
+    SYNCS[kind] += 1
+    with span("nuts.sync"):
+        return bool(mask.any())
 
 
 def _ctz(n):
@@ -117,62 +129,62 @@ def _build_subtree(vg_fn, start: _Leaf, depth: int, eps, inv_mass, h0, max_depth
 
     for i in range(1 << depth):
         live = active & ~st.turning & ~st.diverging
-        SYNCS["leaf"] += 1
-        if not bool(live.any()):
+        if not _any(live, "leaf"):
             break
-        j = i + 1  # 1-based leaf index within the subtree
-        leaf = _single_leapfrog(vg_fn, st.leaf, eps, inv_mass)
-        log_w_leaf = h0 - leaf.energy
-        diverging = (leaf.energy - h0) > MAX_DELTA_ENERGY
-        accept_stat = torch.minimum(torch.ones_like(log_w_leaf), torch.exp(log_w_leaf))
+        with span("nuts.leaf"):
+            j = i + 1  # 1-based leaf index within the subtree
+            leaf = _single_leapfrog(vg_fn, st.leaf, eps, inv_mass)
+            log_w_leaf = h0 - leaf.energy
+            diverging = (leaf.energy - h0) > MAX_DELTA_ENERGY
+            accept_stat = torch.minimum(torch.ones_like(log_w_leaf), torch.exp(log_w_leaf))
 
-        # this leaf may be the first of a later aligned subtree: park it in
-        # slot ctz(j - 1), the subtree's first leaf in the top slot
-        slot = max_depth if i == 0 else _ctz(i)
-        ck_q, ck_p, ck_rho_before = st.ck_q.clone(), st.ck_p.clone(), st.ck_rho_before.clone()
-        ck_q[:, slot] = leaf.q
-        ck_p[:, slot] = leaf.p
-        ck_rho_before[:, slot] = st.rho
+            # this leaf may be the first of a later aligned subtree: park it in
+            # slot ctz(j - 1), the subtree's first leaf in the top slot
+            slot = max_depth if i == 0 else _ctz(i)
+            ck_q, ck_p, ck_rho_before = st.ck_q.clone(), st.ck_p.clone(), st.ck_rho_before.clone()
+            ck_q[:, slot] = leaf.q
+            ck_p[:, slot] = leaf.p
+            ck_rho_before[:, slot] = st.rho
 
-        rho = st.rho + leaf.p
-        first_p = leaf.p if i == 0 else st.first_p
+            rho = st.rho + leaf.p
+            first_p = leaf.p if i == 0 else st.first_p
 
-        # streaming multinomial proposal
-        new_key, k_u = key.split(2)
-        log_w_new = torch.logaddexp(st.log_w, log_w_leaf)
-        take = torch.log(k_u.uniform(dtype)) < (log_w_leaf - log_w_new)
-        prop_q = torch.where(take[:, None], leaf.q, st.prop_q)
-        prop_logp = torch.where(take, leaf.logp, st.prop_logp)
-        prop_grad = torch.where(take[:, None], leaf.grad, st.prop_grad)
+            # streaming multinomial proposal
+            new_key, k_u = key.split(2)
+            log_w_new = torch.logaddexp(st.log_w, log_w_leaf)
+            take = torch.log(k_u.uniform(dtype)) < (log_w_leaf - log_w_new)
+            prop_q = torch.where(take[:, None], leaf.q, st.prop_q)
+            prop_logp = torch.where(take, leaf.logp, st.prop_logp)
+            prop_grad = torch.where(take[:, None], leaf.grad, st.prop_grad)
 
-        # U-turn checks of the aligned subtrees ending here, of sizes 2^k
-        # for k = 1 .. ctz(j): the first leaf of size 2^k (k < ctz(j)) sits
-        # in slot k; that of size 2^ctz(j) in slot ctz(j - 2^ctz(j)), or in
-        # the top slot when it is the subtree's first leaf (whose ρ before
-        # is 0 and whose p is first_p). The pre-write checkpoints are read.
-        tz = min(_ctz(j), max_depth)
-        turning = st.turning
-        if tz:
-            s_last = j - (1 << tz)
-            last = max_depth if s_last == 0 else _ctz(s_last)
-            rho_before = torch.cat([st.ck_rho_before[:, 1:tz],
-                                    st.ck_rho_before[:, last:last + 1]], dim=1)
-            p_left = torch.cat([st.ck_p[:, 1:tz], st.ck_p[:, last:last + 1]], dim=1)
-            rho_sub = rho[:, None, :] - rho_before  # (C, K, dim)
-            v_left = _row_velocity(p_left, inv_mass)
-            v_right = _row_velocity(leaf.p, inv_mass)[:, None, :]
-            turn_k = ((torch.sum(rho_sub * v_left, dim=-1) < 0)
-                      | (torch.sum(rho_sub * v_right, dim=-1) < 0))
-            turning = turning | torch.any(turn_k, dim=-1)
+            # U-turn checks of the aligned subtrees ending here, of sizes 2^k
+            # for k = 1 .. ctz(j): the first leaf of size 2^k (k < ctz(j)) sits
+            # in slot k; that of size 2^ctz(j) in slot ctz(j - 2^ctz(j)), or in
+            # the top slot when it is the subtree's first leaf (whose ρ before
+            # is 0 and whose p is first_p). The pre-write checkpoints are read.
+            tz = min(_ctz(j), max_depth)
+            turning = st.turning
+            if tz:
+                s_last = j - (1 << tz)
+                last = max_depth if s_last == 0 else _ctz(s_last)
+                rho_before = torch.cat([st.ck_rho_before[:, 1:tz],
+                                        st.ck_rho_before[:, last:last + 1]], dim=1)
+                p_left = torch.cat([st.ck_p[:, 1:tz], st.ck_p[:, last:last + 1]], dim=1)
+                rho_sub = rho[:, None, :] - rho_before  # (C, K, dim)
+                v_left = _row_velocity(p_left, inv_mass)
+                v_right = _row_velocity(leaf.p, inv_mass)[:, None, :]
+                turn_k = ((torch.sum(rho_sub * v_left, dim=-1) < 0)
+                          | (torch.sum(rho_sub * v_right, dim=-1) < 0))
+                turning = turning | torch.any(turn_k, dim=-1)
 
-        new = _SubtreeState(
-            leaf=leaf, prop_q=prop_q, prop_logp=prop_logp, prop_grad=prop_grad,
-            log_w=log_w_new, rho=rho, first_p=first_p,
-            sum_accept=st.sum_accept + accept_stat,
-            turning=turning, diverging=st.diverging | diverging,
-            ck_q=ck_q, ck_p=ck_p, ck_rho_before=ck_rho_before)
-        st = _where(live, new, st)
-        key = new_key.where(live, key)
+            new = _SubtreeState(
+                leaf=leaf, prop_q=prop_q, prop_logp=prop_logp, prop_grad=prop_grad,
+                log_w=log_w_new, rho=rho, first_p=first_p,
+                sum_accept=st.sum_accept + accept_stat,
+                turning=turning, diverging=st.diverging | diverging,
+                ck_q=ck_q, ck_p=ck_p, ck_rho_before=ck_rho_before)
+            st = _where(live, new, st)
+            key = new_key.where(live, key)
     return st
 
 
@@ -207,56 +219,56 @@ def nuts_step(vg_fn, q, logp, key, step_size, inv_mass, max_depth: int = 10,
     a (C, dim) diagonal or (C, dim, dim) dense inverse metric;
     `mass_chol_factor` (optional) caches hmc.mass_chol(inv_mass).
     Returns (q', logp', grad', info)."""
-    C, dim = q.shape
-    dtype, dev = q.dtype, q.device
-    step = torch.as_tensor(step_size, dtype=dtype, device=dev).expand(C)
-    key, k_mom = key.split(2)
-    p0 = sample_momentum(k_mom, inv_mass, chol=mass_chol_factor, shape=(dim,), dtype=dtype)
-    g0 = grad0 if grad0 is not None else vg_fn(q)[1]
-    h0 = -logp + kinetic(p0, inv_mass)
-    left = right = _Leaf(q=q, p=p0, grad=g0, logp=logp, energy=h0)
-    false = torch.zeros((C,), dtype=torch.bool, device=dev)
-    zero = torch.zeros((C,), dtype=dtype, device=dev)
-    c = _Carry(depth=torch.zeros((C,), dtype=torch.int64, device=dev), rho=p0, prop_q=q,
-               prop_logp=logp, prop_grad=g0, log_w=zero, sum_accept=zero,
-               num_leaves=torch.zeros((C,), dtype=torch.int64, device=dev),
-               turning=false, diverging=false)
+    with span("nuts.transition"):
+        C, dim = q.shape
+        dtype, dev = q.dtype, q.device
+        step = torch.as_tensor(step_size, dtype=dtype, device=dev).expand(C)
+        key, k_mom = key.split(2)
+        p0 = sample_momentum(k_mom, inv_mass, chol=mass_chol_factor, shape=(dim,), dtype=dtype)
+        g0 = grad0 if grad0 is not None else vg_fn(q)[1]
+        h0 = -logp + kinetic(p0, inv_mass)
+        left = right = _Leaf(q=q, p=p0, grad=g0, logp=logp, energy=h0)
+        false = torch.zeros((C,), dtype=torch.bool, device=dev)
+        zero = torch.zeros((C,), dtype=dtype, device=dev)
+        c = _Carry(depth=torch.zeros((C,), dtype=torch.int64, device=dev), rho=p0, prop_q=q,
+                   prop_logp=logp, prop_grad=g0, log_w=zero, sum_accept=zero,
+                   num_leaves=torch.zeros((C,), dtype=torch.int64, device=dev),
+                   turning=false, diverging=false)
 
-    for depth in range(max_depth):
-        active = ~c.turning & ~c.diverging
-        SYNCS["depth"] += 1
-        if not bool(active.any()):
-            break
-        new_key, k_dir, k_sub, k_merge = key.split(4)
-        go_right = k_dir.bernoulli()
-        eps = torch.where(go_right, step, -step)
-        start = _where(go_right, right, left)
-        st = _build_subtree(vg_fn, start, depth, eps, inv_mass, h0, max_depth, k_sub, active)
-        bad = st.turning | st.diverging
+        for depth in range(max_depth):
+            active = ~c.turning & ~c.diverging
+            if not _any(active, "depth"):
+                break
+            new_key, k_dir, k_sub, k_merge = key.split(4)
+            go_right = k_dir.bernoulli()
+            eps = torch.where(go_right, step, -step)
+            start = _where(go_right, right, left)
+            st = _build_subtree(vg_fn, start, depth, eps, inv_mass, h0, max_depth, k_sub, active)
+            bad = st.turning | st.diverging
 
-        # biased progressive merge (only when the subtree is clean)
-        take = (torch.log(k_merge.uniform(dtype)) < (st.log_w - c.log_w)) & ~bad
-        new_right = _where(go_right & ~bad, st.leaf, right)
-        new_left = _where(~go_right & ~bad, st.leaf, left)
-        rho = torch.where(bad[:, None], c.rho, c.rho + st.rho)
-        full_turn = ((torch.sum(rho * velocity(inv_mass, new_left.p), dim=-1) < 0)
-                     | (torch.sum(rho * velocity(inv_mass, new_right.p), dim=-1) < 0))
-        new = _Carry(
-            depth=c.depth + 1, rho=rho,
-            prop_q=torch.where(take[:, None], st.prop_q, c.prop_q),
-            prop_logp=torch.where(take, st.prop_logp, c.prop_logp),
-            prop_grad=torch.where(take[:, None], st.prop_grad, c.prop_grad),
-            log_w=torch.where(bad, c.log_w, torch.logaddexp(c.log_w, st.log_w)),
-            sum_accept=c.sum_accept + st.sum_accept,
-            num_leaves=c.num_leaves + (1 << depth),
-            turning=c.turning | bad | (full_turn & ~bad),
-            diverging=c.diverging | st.diverging)
-        c = _where(active, new, c)
-        left = _where(active, new_left, left)
-        right = _where(active, new_right, right)
-        key = new_key.where(active, key)
+            # biased progressive merge (only when the subtree is clean)
+            take = (torch.log(k_merge.uniform(dtype)) < (st.log_w - c.log_w)) & ~bad
+            new_right = _where(go_right & ~bad, st.leaf, right)
+            new_left = _where(~go_right & ~bad, st.leaf, left)
+            rho = torch.where(bad[:, None], c.rho, c.rho + st.rho)
+            full_turn = ((torch.sum(rho * velocity(inv_mass, new_left.p), dim=-1) < 0)
+                         | (torch.sum(rho * velocity(inv_mass, new_right.p), dim=-1) < 0))
+            new = _Carry(
+                depth=c.depth + 1, rho=rho,
+                prop_q=torch.where(take[:, None], st.prop_q, c.prop_q),
+                prop_logp=torch.where(take, st.prop_logp, c.prop_logp),
+                prop_grad=torch.where(take[:, None], st.prop_grad, c.prop_grad),
+                log_w=torch.where(bad, c.log_w, torch.logaddexp(c.log_w, st.log_w)),
+                sum_accept=c.sum_accept + st.sum_accept,
+                num_leaves=c.num_leaves + (1 << depth),
+                turning=c.turning | bad | (full_turn & ~bad),
+                diverging=c.diverging | st.diverging)
+            c = _where(active, new, c)
+            left = _where(active, new_left, left)
+            right = _where(active, new_right, right)
+            key = new_key.where(active, key)
 
-    accept_prob = c.sum_accept / torch.clamp_min(c.num_leaves, 1).to(dtype)
-    info = NUTSInfo(accept_prob=accept_prob, num_leaves=c.num_leaves,
-                    diverging=c.diverging, depth=c.depth)
-    return c.prop_q, c.prop_logp, c.prop_grad, info
+        accept_prob = c.sum_accept / torch.clamp_min(c.num_leaves, 1).to(dtype)
+        info = NUTSInfo(accept_prob=accept_prob, num_leaves=c.num_leaves,
+                        diverging=c.diverging, depth=c.depth)
+        return c.prop_q, c.prop_logp, c.prop_grad, info

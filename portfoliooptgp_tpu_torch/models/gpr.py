@@ -21,6 +21,7 @@ residual Y − μ(X) to (B, N, P) either way.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import math
@@ -36,6 +37,7 @@ from portfoliooptgp_tpu_torch.ops import blocked_nll as blocked_mod
 from portfoliooptgp_tpu_torch.ops import linalg
 from portfoliooptgp_tpu_torch.ops import nll as nll_mod
 from portfoliooptgp_tpu_torch.params import batch_size, tree_leaves, tree_to
+from portfoliooptgp_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,13 +228,13 @@ def fused_stationary_spec(stacked_model, X):
 
 _dispatch_logger = logging.getLogger("portfoliooptgp_tpu_torch.dispatch")
 
-#: Record of NLL dispatch decisions (dicts with tier/N/B), one per call.
-DISPATCH_EVENTS: list = []
+#: Record of NLL dispatch decisions (dicts with tier/N/B), one per call of
+#: `batched_neg_log_marginal_likelihood` and of the walk-forward; the last 256.
+DISPATCH_EVENTS: collections.deque = collections.deque(maxlen=256)
+
 
 def _record_tier(tier: str, n: int, b: int) -> None:
     DISPATCH_EVENTS.append({"tier": tier, "n": int(n), "batch": int(b)})
-    if len(DISPATCH_EVENTS) > 512:
-        del DISPATCH_EVENTS[:256]
     _dispatch_logger.info("batched NLL dispatch: tier=%s N=%d B=%d", tier, n, b)
 
 
@@ -276,33 +278,37 @@ def batched_neg_log_marginal_likelihood(stacked_model, X, Y, fast: bool = True,
     kernel structure and N like the JAX router. Model, X and Y are moved
     to (device, dtype) first. 'xla' is the plain batched path (the JAX
     package's vmapped XLA path); every other tier runs its CUDA kernel on
-    a GPU and its plain version on the CPU."""
+    a GPU and its plain version on the CPU. The span `router.dispatch`
+    covers the moves, the tier's choice and the fused tiers' operands."""
     from portfoliooptgp_tpu_torch.ops import stationary_nll as st_mod
 
-    dev = resolve_device(device)
-    stacked_model = tree_to(stacked_model, dev, dtype)
-    X = torch.as_tensor(X).to(device=dev, dtype=dtype)
-    Y = torch.as_tensor(Y).to(device=dev, dtype=dtype)
-    n = X.shape[0]
-    b = batch_size(stacked_model)
-    tier = nll_tier(stacked_model, X, Y, fast=fast)
-    _record_tier(tier, n, b)
+    with span("router.dispatch"):
+        dev = resolve_device(device)
+        stacked_model = tree_to(stacked_model, dev, dtype)
+        X = torch.as_tensor(X).to(device=dev, dtype=dtype)
+        Y = torch.as_tensor(Y).to(device=dev, dtype=dtype)
+        n = X.shape[0]
+        b = batch_size(stacked_model)
+        tier = nll_tier(stacked_model, X, Y, fast=fast)
+        _record_tier(tier, n, b)
+        if tier != "xla":
+            noise = stacked_model.likelihood.variance
+            err = _err(stacked_model, X, Y)[:, :, 0]
+        if tier.startswith("fused"):
+            spec = fused_stationary_spec(stacked_model, X)
+        if tier.startswith("fused_general"):
+            mask = torch.ones((b, n), dtype=X.dtype, device=X.device)
     if tier == "xla":
         return neg_log_marginal_likelihood(stacked_model, X, Y)
-
-    noise = stacked_model.likelihood.variance
-    err = _err(stacked_model, X, Y)[:, :, 0]
     if tier == "pallas_dense":
         return nll_mod.batched_nll(stacked_model.kernel.K(X), err, noise)
     if tier == "blocked":
         return blocked_mod.batched_nll_blocked(stacked_model.kernel.K(X), err, noise)
     if tier == "blocked_hinv":
         return blocked_mod.batched_nll_hinv(stacked_model.kernel.K(X), err, noise)
-    spec = fused_stationary_spec(stacked_model, X)
     if tier == "fused_stationary":
         return st_mod.batched_nll_stationary(
             spec.d2s[0], err, spec.vs[0], spec.ls[0], noise, spec.families[0])
-    mask = torch.ones((b, n), dtype=X.dtype, device=X.device)
     fused = (st_mod.batched_nll_stationary_sum if tier == "fused_general_sum"
              else st_mod.batched_nll_stationary_general)
     return fused(spec.families, spec.d2s, err, spec.vs, spec.ls, spec.als,

@@ -37,6 +37,7 @@ import math
 import torch
 
 from portfoliooptgp_tpu_torch.ops import linalg
+from portfoliooptgp_tpu_torch.utils.profiling import span
 
 LOG2PI = 1.8378770664093453
 SQRT3 = 1.7320508075688772
@@ -296,68 +297,69 @@ class _GeneralNLL(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        families, combine, dims = ctx.meta
-        d2s, err, vs, ls, als, noise, mask, W, a = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        Wt = W.transpose(-1, -2)
-        Kinv = Wt @ W
-        alpha = (Wt @ a[..., None])[..., 0]
-        dKbar = g[:, None, None] * 0.5 * (
-            Kinv - alpha[:, :, None] * alpha[:, None, :])
-        T = dKbar * (mask[:, :, None] * mask[:, None, :])
-        ss = 1.0 / (ls * ls)
-        offs, o = [], 0  # atom-major offsets into the flat d2s/ls stacks
-        for dj in dims:
-            offs.append(o)
-            o += dj
-        us = []  # per-atom φ argument u_j = Σ_d s_{j,d} d2_{j,d}
-        for j, dj in enumerate(dims):
-            u = 0.0
-            for d in range(dj):
-                k = offs[j] + d
-                u = u + ss[k][:, None, None] * d2s[k][None]
-            us.append(u)
-        abc = [al[:, None, None] for al in als]
-        phis = [_phi(fam, u, ab) for fam, u, ab in zip(families, us, abc)]
-        P = 1.0
-        for v in vs:
-            P = P * v
-        dvs, dals = [], []
-        dls = [None] * ls.shape[0]
-        dd2s = [None] * d2s.shape[0]
-        for j, fam in enumerate(families):
-            if combine == "sum":
-                # K = Σ_k v_k φ_k: ∂K/∂v_j = φ_j, ∂K/∂u_j = v_j φ'_j
-                dv_j = torch.sum(T * phis[j], dim=(1, 2))
-                wj = vs[j][:, None, None]
-            else:
-                # K = Π_k v_k φ_k: ∂K/∂v_j = (Π v) φ_j Π_{k≠j} φ_k / v_j
-                other = 1.0
-                for k2 in range(len(families)):
-                    if k2 != j:
-                        other = other * phis[k2]
-                dv_j = torch.sum(T * other * phis[j], dim=(1, 2)) * (P / vs[j])
-                wj = P[:, None, None] * other
-            du_j = wj * T * _phi_prime(fam, us[j], abc[j])
-            for d in range(dims[j]):
-                k = offs[j] + d
-                ds_k = torch.sum(du_j * d2s[k][None], dim=(1, 2))
-                dls[k] = ds_k * (-2.0 / (ls[k] ** 3))
-                dd2s[k] = torch.sum(ss[k][:, None, None] * du_j, dim=0)
-            if fam in ("rq", "periodic_se"):
-                dal_pre = wj * T * _phi_dalpha(fam, us[j], abc[j])
-                dal_j = torch.sum(dal_pre, dim=(1, 2))
-            else:
-                dal_j = torch.zeros_like(als[j])
-            dvs.append(dv_j)
-            dals.append(dal_j)
-        diag_dK = torch.diagonal(dKbar, dim1=-2, dim2=-1)
-        dnoise = torch.sum(diag_dK * mask, dim=-1)
-        derr = g[:, None] * alpha
-        return (None, None, None, None,
-                torch.stack(dd2s) if need[4] else None,
-                derr, torch.stack(dvs), torch.stack(dls), torch.stack(dals),
-                dnoise, None)
+        with span("nll.backward"):
+            families, combine, dims = ctx.meta
+            d2s, err, vs, ls, als, noise, mask, W, a = ctx.saved_tensors
+            need = ctx.needs_input_grad
+            Wt = W.transpose(-1, -2)
+            Kinv = Wt @ W
+            alpha = (Wt @ a[..., None])[..., 0]
+            dKbar = g[:, None, None] * 0.5 * (
+                Kinv - alpha[:, :, None] * alpha[:, None, :])
+            T = dKbar * (mask[:, :, None] * mask[:, None, :])
+            ss = 1.0 / (ls * ls)
+            offs, o = [], 0  # atom-major offsets into the flat d2s/ls stacks
+            for dj in dims:
+                offs.append(o)
+                o += dj
+            us = []  # per-atom φ argument u_j = Σ_d s_{j,d} d2_{j,d}
+            for j, dj in enumerate(dims):
+                u = 0.0
+                for d in range(dj):
+                    k = offs[j] + d
+                    u = u + ss[k][:, None, None] * d2s[k][None]
+                us.append(u)
+            abc = [al[:, None, None] for al in als]
+            phis = [_phi(fam, u, ab) for fam, u, ab in zip(families, us, abc)]
+            P = 1.0
+            for v in vs:
+                P = P * v
+            dvs, dals = [], []
+            dls = [None] * ls.shape[0]
+            dd2s = [None] * d2s.shape[0]
+            for j, fam in enumerate(families):
+                if combine == "sum":
+                    # K = Σ_k v_k φ_k: ∂K/∂v_j = φ_j, ∂K/∂u_j = v_j φ'_j
+                    dv_j = torch.sum(T * phis[j], dim=(1, 2))
+                    wj = vs[j][:, None, None]
+                else:
+                    # K = Π_k v_k φ_k: ∂K/∂v_j = (Π v) φ_j Π_{k≠j} φ_k / v_j
+                    other = 1.0
+                    for k2 in range(len(families)):
+                        if k2 != j:
+                            other = other * phis[k2]
+                    dv_j = torch.sum(T * other * phis[j], dim=(1, 2)) * (P / vs[j])
+                    wj = P[:, None, None] * other
+                du_j = wj * T * _phi_prime(fam, us[j], abc[j])
+                for d in range(dims[j]):
+                    k = offs[j] + d
+                    ds_k = torch.sum(du_j * d2s[k][None], dim=(1, 2))
+                    dls[k] = ds_k * (-2.0 / (ls[k] ** 3))
+                    dd2s[k] = torch.sum(ss[k][:, None, None] * du_j, dim=0)
+                if fam in ("rq", "periodic_se"):
+                    dal_pre = wj * T * _phi_dalpha(fam, us[j], abc[j])
+                    dal_j = torch.sum(dal_pre, dim=(1, 2))
+                else:
+                    dal_j = torch.zeros_like(als[j])
+                dvs.append(dv_j)
+                dals.append(dal_j)
+            diag_dK = torch.diagonal(dKbar, dim1=-2, dim2=-1)
+            dnoise = torch.sum(diag_dK * mask, dim=-1)
+            derr = g[:, None] * alpha
+            return (None, None, None, None,
+                    torch.stack(dd2s) if need[4] else None,
+                    derr, torch.stack(dvs), torch.stack(dls), torch.stack(dals),
+                    dnoise, None)
 
 
 def _general(families, combine, dims, d2s, err, vs, ls, als, noise, mask,

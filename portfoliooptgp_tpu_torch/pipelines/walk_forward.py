@@ -36,6 +36,7 @@ from portfoliooptgp_tpu_torch.ops import linalg
 from portfoliooptgp_tpu_torch.params import batch_size, ravel, tree_map, tree_to, unravel
 from portfoliooptgp_tpu_torch.parallel import mesh as mesh_mod
 from portfoliooptgp_tpu_torch.train import batched_lbfgs, lbfgs
+from portfoliooptgp_tpu_torch.utils.profiling import span
 
 LOG_2PI = math.log(2.0 * math.pi)
 
@@ -123,104 +124,118 @@ def batched_walk_forward(
     max(maxiter // 4, 10)).
 
     mesh (parallel/mesh.py): split the D·R rows over `mesh_axis`, whose size
-    must divide D·R; the device is the mesh's."""
-    dev = resolve_device(device) if mesh is None else mesh.device
-    X_full = as_tensor(X_full, dev, dtype)
-    Y_full = as_tensor(Y_full, dev, dtype)
-    n_full = X_full.shape[0]
-    if n_days is None:
-        n_days = n_full - n_train
-    D = n_days
-    R = len(restart_noise_inits)
+    must divide D·R; the device is the mesh's.
 
-    row = torch.arange(n_full, device=dev)
-    masks = (row[None, :] < (n_train + torch.arange(D, device=dev))[:, None]).to(dtype)
-    models = [tree_to(make_model(v), dev, dtype) for v in restart_noise_inits]
-    stacked_r = lbfgs.stack_pytrees(models)  # batch R
-    masks_dr = torch.repeat_interleave(masks, R, dim=0)  # (D*R, n)
-    frozen = (None if train_likelihood_variance
-              else lbfgs.freeze_leaves(models[0], likelihood=True))
+    The call records the tier its loss runs in `gpr.DISPATCH_EVENTS`, by
+    the router's names, and is the span `walk_forward.call`; the fused
+    loss's operand build is the span `router.dispatch`."""
+    with span("walk_forward.call"):
+        dev = resolve_device(device) if mesh is None else mesh.device
+        X_full = as_tensor(X_full, dev, dtype)
+        Y_full = as_tensor(Y_full, dev, dtype)
+        n_full = X_full.shape[0]
+        if n_days is None:
+            n_days = n_full - n_train
+        D = n_days
+        R = len(restart_noise_inits)
 
-    if warm_start:
-        masks_r0 = masks[:1].expand(R, n_full)
-        stacked_r, _ = batched_lbfgs.fit_batched_fused(
-            lambda ms: masked_nll(ms, X_full, Y_full, masks_r0), stacked_r,
-            frozen=frozen, maxiter=maxiter, **fit_kw)
-        maxiter = warm_maxiter if warm_maxiter is not None else max(maxiter // 4, 10)
+        row = torch.arange(n_full, device=dev)
+        masks = (row[None, :] < (n_train + torch.arange(D, device=dev))[:, None]).to(dtype)
+        models = [tree_to(make_model(v), dev, dtype) for v in restart_noise_inits]
+        stacked_r = lbfgs.stack_pytrees(models)  # batch R
+        masks_dr = torch.repeat_interleave(masks, R, dim=0)  # (D*R, n)
+        frozen = (None if train_likelihood_variance
+                  else lbfgs.freeze_leaves(models[0], likelihood=True))
 
-    # tile to (D*R, ...): day-major so reshape recovers (D, R)
-    stacked = tree_map(lambda x: x.repeat((D,) + (1,) * (x.ndim - 1)), stacked_r)
-    if mesh is not None:
-        n_shards = mesh.shape[mesh_axis]
-        if (D * R) % n_shards:
-            raise ValueError(f"the '{mesh_axis}' axis size {n_shards} must divide the "
-                             f"walk-forward batch D*R={D * R}")
-        stacked = tree_map(lambda x: mesh_mod.shard_rows(mesh, x, mesh_axis), stacked)
-        masks_dr = mesh_mod.shard_rows(mesh, masks_dr, mesh_axis)
+        if warm_start:
+            masks_r0 = masks[:1].expand(R, n_full)
+            stacked_r, _ = batched_lbfgs.fit_batched_fused(
+                lambda ms: masked_nll(ms, X_full, Y_full, masks_r0), stacked_r,
+                frozen=frozen, maxiter=maxiter, **fit_kw)
+            maxiter = warm_maxiter if warm_maxiter is not None else max(maxiter // 4, 10)
 
-    from portfoliooptgp_tpu_torch.ops import blocked_nll as blocked_mod
-    from portfoliooptgp_tpu_torch.ops import nll as nll_mod
-    from portfoliooptgp_tpu_torch.ops import stationary_nll as st_mod
+        # tile to (D*R, ...): day-major so reshape recovers (D, R)
+        stacked = tree_map(lambda x: x.repeat((D,) + (1,) * (x.ndim - 1)), stacked_r)
+        if mesh is not None:
+            n_shards = mesh.shape[mesh_axis]
+            if (D * R) % n_shards:
+                raise ValueError(f"the '{mesh_axis}' axis size {n_shards} must divide the "
+                                 f"walk-forward batch D*R={D * R}")
+            stacked = tree_map(lambda x: mesh_mod.shard_rows(mesh, x, mesh_axis), stacked)
+            masks_dr = mesh_mod.shard_rows(mesh, masks_dr, mesh_axis)
 
-    f32 = dtype == torch.float32
-    use_fused = f32 and st_mod.fused_nll_supported(n_full)
-    n_eff_dr = torch.sum(masks_dr, dim=1)
-    spec_probe = gpr_mod.fused_stationary_spec(stacked, X_full) if use_fused else None
+        from portfoliooptgp_tpu_torch.ops import blocked_nll as blocked_mod
+        from portfoliooptgp_tpu_torch.ops import nll as nll_mod
+        from portfoliooptgp_tpu_torch.ops import stationary_nll as st_mod
 
-    if spec_probe is not None:
-        # fused masked path: K is built inside the kernel from the shared
-        # per-atom distance matrices and each day's prefix mask
-        def batched_loss(ms):
-            spec = gpr_mod.fused_stationary_spec(ms, X_full)
-            err = (Y_full[None, :, 0] - mean_rows(ms, X_full, masks_dr.shape[0])) * masks_dr
-            fused = (st_mod.batched_nll_stationary_sum if spec.combine == "sum"
-                     else st_mod.batched_nll_stationary_general)
-            nll = fused(spec.families, spec.d2s, err, spec.vs, spec.ls, spec.als,
-                        ms.likelihood.variance, masks_dr, dims=spec.dims)
-            # the kernel's 2π constant uses the full N; restate it for n_eff
-            return nll - 0.5 * (n_full - n_eff_dr) * LOG_2PI
-    elif f32 and nll_mod.pallas_nll_supported(n_full):
-        # the dense kernel on the masked system, which carries its own
-        # diagonal (mask·σ² + 1 − mask): zero added noise
-        def batched_loss(ms):
-            Kb, errb = masked_system(ms, X_full, Y_full, masks_dr)
-            nll = nll_mod.batched_nll(Kb, errb[:, :, 0],
-                                      torch.zeros_like(n_eff_dr))
-            # the kernel's 2π constant uses the full N; restate it for n_eff
-            return nll - 0.5 * (n_full - n_eff_dr) * LOG_2PI
-    elif f32 and (blocked_mod.blocked_nll_preferred(n_full)
-                  or blocked_mod.hinv_nll_preferred(n_full, D * R)):
-        # large-N masked rows through the blocked tiers (the panel kernel,
-        # or the hinv tier's triangular-inverse kernel), at zero added noise
-        # as above; the same tier windows as the router
-        tier_fn = (blocked_mod.batched_nll_blocked
-                   if blocked_mod.blocked_nll_preferred(n_full)
-                   else blocked_mod.batched_nll_hinv)  # gated on D·R above
+        f32 = dtype == torch.float32
+        use_fused = f32 and st_mod.fused_nll_supported(n_full)
+        n_eff_dr = torch.sum(masks_dr, dim=1)
+        spec_probe = gpr_mod.fused_stationary_spec(stacked, X_full) if use_fused else None
 
-        def batched_loss(ms):
-            Kb, errb = masked_system(ms, X_full, Y_full, masks_dr)
-            nll = tier_fn(Kb, errb[:, :, 0], torch.zeros_like(n_eff_dr))
-            return nll - 0.5 * (n_full - n_eff_dr) * LOG_2PI
-    else:
-        def batched_loss(ms):
-            return masked_nll(ms, X_full, Y_full, masks_dr)
+        if spec_probe is not None:
+            # fused masked path: K is built inside the kernel from the shared
+            # per-atom distance matrices and each day's prefix mask
+            tier = f"fused_general_{spec_probe.combine}"
 
-    trained, res = batched_lbfgs.fit_batched_fused(
-        batched_loss, stacked, frozen=frozen, maxiter=maxiter, **fit_kw)
-    loss = res.loss
-    if mesh is not None:
-        trained = unravel(trained, mesh_mod.all_gather(ravel(trained), mesh, mesh_axis))
-        loss = mesh_mod.all_gather(loss, mesh, mesh_axis)
+            def batched_loss(ms):
+                with span("router.dispatch"):
+                    spec = gpr_mod.fused_stationary_spec(ms, X_full)
+                    mu = mean_rows(ms, X_full, masks_dr.shape[0])
+                    err = (Y_full[None, :, 0] - mu) * masks_dr
+                fused = (st_mod.batched_nll_stationary_sum if spec.combine == "sum"
+                         else st_mod.batched_nll_stationary_general)
+                nll = fused(spec.families, spec.d2s, err, spec.vs, spec.ls, spec.als,
+                            ms.likelihood.variance, masks_dr, dims=spec.dims)
+                # the kernel's 2π constant uses the full N; restate it for n_eff
+                return nll - 0.5 * (n_full - n_eff_dr) * LOG_2PI
+        elif f32 and nll_mod.pallas_nll_supported(n_full):
+            # the dense kernel on the masked system, which carries its own
+            # diagonal (mask·σ² + 1 − mask): zero added noise
+            tier = "pallas_dense"
 
-    losses = torch.where(torch.isfinite(loss), loss,
-                         torch.full_like(loss, float("inf"))).reshape(D, R)
-    best_r = torch.argmin(losses, dim=1)
-    flat_idx = torch.arange(D, device=dev) * R + best_r
-    best_models = tree_map(lambda x: x[flat_idx].detach(), trained)
-    assert batch_size(best_models) == D
+            def batched_loss(ms):
+                Kb, errb = masked_system(ms, X_full, Y_full, masks_dr)
+                nll = nll_mod.batched_nll(Kb, errb[:, :, 0],
+                                          torch.zeros_like(n_eff_dr))
+                # the kernel's 2π constant uses the full N; restate it for n_eff
+                return nll - 0.5 * (n_full - n_eff_dr) * LOG_2PI
+        elif f32 and (blocked_mod.blocked_nll_preferred(n_full)
+                      or blocked_mod.hinv_nll_preferred(n_full, D * R)):
+            # large-N masked rows through the blocked tiers (the panel kernel,
+            # or the hinv tier's triangular-inverse kernel), at zero added noise
+            # as above; the same tier windows as the router
+            tier = "blocked" if blocked_mod.blocked_nll_preferred(n_full) else "blocked_hinv"
+            tier_fn = (blocked_mod.batched_nll_blocked if tier == "blocked"
+                       else blocked_mod.batched_nll_hinv)  # gated on D·R above
 
-    next_idx = n_train + torch.arange(D, device=dev)
-    with torch.no_grad():
-        f_mean, f_var = masked_predict_next(best_models, X_full, Y_full, masks, next_idx)
-    return WalkForwardResult(models=best_models, losses=torch.min(losses, dim=1).values,
-                             f_mean=f_mean, f_var=f_var)
+            def batched_loss(ms):
+                Kb, errb = masked_system(ms, X_full, Y_full, masks_dr)
+                nll = tier_fn(Kb, errb[:, :, 0], torch.zeros_like(n_eff_dr))
+                return nll - 0.5 * (n_full - n_eff_dr) * LOG_2PI
+        else:
+            tier = "xla"
+
+            def batched_loss(ms):
+                return masked_nll(ms, X_full, Y_full, masks_dr)
+        gpr_mod._record_tier(tier, n_full, masks_dr.shape[0])
+
+        trained, res = batched_lbfgs.fit_batched_fused(
+            batched_loss, stacked, frozen=frozen, maxiter=maxiter, **fit_kw)
+        loss = res.loss
+        if mesh is not None:
+            trained = unravel(trained, mesh_mod.all_gather(ravel(trained), mesh, mesh_axis))
+            loss = mesh_mod.all_gather(loss, mesh, mesh_axis)
+
+        losses = torch.where(torch.isfinite(loss), loss,
+                             torch.full_like(loss, float("inf"))).reshape(D, R)
+        best_r = torch.argmin(losses, dim=1)
+        flat_idx = torch.arange(D, device=dev) * R + best_r
+        best_models = tree_map(lambda x: x[flat_idx].detach(), trained)
+        assert batch_size(best_models) == D
+
+        next_idx = n_train + torch.arange(D, device=dev)
+        with torch.no_grad():
+            f_mean, f_var = masked_predict_next(best_models, X_full, Y_full, masks, next_idx)
+        return WalkForwardResult(models=best_models, losses=torch.min(losses, dim=1).values,
+                                 f_mean=f_mean, f_var=f_var)

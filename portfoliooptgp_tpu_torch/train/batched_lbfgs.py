@@ -9,6 +9,11 @@ skipped per row, steepest descent where the direction is not a descent
 direction, and the same gtol/ftol/maxiter stopping rules. One gradient per
 iteration comes from one backward of the summed loss (rows are
 independent models). `lax.while_loop`s are Python loops.
+
+Spans (utils/profiling.py): `lbfgs.iteration` a pass of the loop,
+`lbfgs.value` a value-only evaluation (the first and each line-search
+trial), `lbfgs.gradient` one with gradient, `lbfgs.sync` each host read
+of whether a row is still active or has yet to accept a step.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from portfoliooptgp_tpu_torch.params import tree_leaves, tree_replace
+from portfoliooptgp_tpu_torch.utils.profiling import span
 
 
 class BatchedFitResult(NamedTuple):
@@ -49,11 +55,11 @@ def fit_matrix(
     fm = None if frozen_mask is None else frozen_mask[None, :].to(torch.bool)
 
     def loss_of(Z):
-        with torch.no_grad():
+        with span("lbfgs.value"), torch.no_grad():
             return batched_loss(Z)
 
     def grad_of(Z):
-        with torch.enable_grad():
+        with span("lbfgs.gradient"), torch.enable_grad():
             Zr = Z.detach().requires_grad_(True)
             (g,) = torch.autograd.grad(torch.sum(batched_loss(Zr)), Zr)
         return torch.where(fm, torch.zeros_like(g), g) if fm is not None else g
@@ -91,56 +97,61 @@ def fit_matrix(
             r = r + (alphas[idx] - beta)[:, None] * S[idx]
         return -r
 
-    while it < maxiter and bool(active.any()):
-        d = direction()
-        # fall back to steepest descent where the direction is not a descent
-        gd = _rowdot(g, d)
-        bad = (gd >= 0) | ~torch.isfinite(gd)
-        d = torch.where(bad[:, None], -g, d)
-        gd = torch.where(bad, -_rowdot(g, g), gd)
-        d = torch.where(active[:, None], d, torch.zeros_like(d))
-        gd = torch.where(active, gd, torch.zeros_like(gd))
+    def any_(mask):
+        with span("lbfgs.sync"):
+            return bool(mask.any())
 
-        # vectorized backtracking-Armijo with early exit once every row has
-        # accepted
-        step = step0
-        accepted = ~active
-        f_new, Z_new = f, Z
-        for _ in range(max_backtracks):
-            if not bool((~accepted).any()):
-                break
-            trial = Z + step[:, None] * d
-            f_t = loss_of(trial)
-            ok = (f_t <= f + armijo_c * step * gd) & torch.isfinite(f_t)
-            newly = ok & ~accepted
-            f_new = torch.where(newly, f_t, f_new)
-            Z_new = torch.where(newly[:, None], trial, Z_new)
-            accepted = accepted | ok
-            step = torch.where(accepted, step, step * 0.5)
-        # rows whose line search failed keep their point this iteration
-        moved = accepted & active
+    while it < maxiter and any_(active):
+        with span("lbfgs.iteration"):
+            d = direction()
+            # fall back to steepest descent where the direction is not a descent
+            gd = _rowdot(g, d)
+            bad = (gd >= 0) | ~torch.isfinite(gd)
+            d = torch.where(bad[:, None], -g, d)
+            gd = torch.where(bad, -_rowdot(g, g), gd)
+            d = torch.where(active[:, None], d, torch.zeros_like(d))
+            gd = torch.where(active, gd, torch.zeros_like(gd))
 
-        g_new = grad_of(Z_new)
-        s = Z_new - Z
-        y = g_new - g
-        sy = _rowdot(s, y)
-        good_pair = moved & (sy > 1e-10) & torch.all(torch.isfinite(y), dim=-1)
-        rho_new = torch.where(good_pair, 1.0 / torch.where(good_pair, sy, torch.ones_like(sy)),
-                              torch.zeros_like(sy))
-        S[head] = torch.where(good_pair[:, None], s, torch.zeros_like(s))
-        Y[head] = torch.where(good_pair[:, None], y, torch.zeros_like(y))
-        rho[head] = rho_new
+            # vectorized backtracking-Armijo with early exit once every row has
+            # accepted
+            step = step0
+            accepted = ~active
+            f_new, Z_new = f, Z
+            for _ in range(max_backtracks):
+                if not any_(~accepted):
+                    break
+                trial = Z + step[:, None] * d
+                f_t = loss_of(trial)
+                ok = (f_t <= f + armijo_c * step * gd) & torch.isfinite(f_t)
+                newly = ok & ~accepted
+                f_new = torch.where(newly, f_t, f_new)
+                Z_new = torch.where(newly[:, None], trial, Z_new)
+                accepted = accepted | ok
+                step = torch.where(accepted, step, step * 0.5)
+            # rows whose line search failed keep their point this iteration
+            moved = accepted & active
 
-        gnorm = torch.linalg.norm(g_new, dim=-1)
-        f_small = torch.abs(f - f_new) <= ftol * torch.clamp_min(torch.abs(f_new), 1.0)
-        # a row stops when converged (gtol/ftol) or when its line search
-        # cannot find any acceptable step
-        active = active & moved & (gnorm > gtol) & ~f_small
-        # grow the next initial step where we accepted at full step
-        step0 = torch.where(moved, torch.clamp_max(step * 2.0, 1.0), step0)
-        Z, f, g = Z_new, f_new, g_new
-        head = (head + 1) % memory_size
-        it += 1
+            g_new = grad_of(Z_new)
+            s = Z_new - Z
+            y = g_new - g
+            sy = _rowdot(s, y)
+            good_pair = moved & (sy > 1e-10) & torch.all(torch.isfinite(y), dim=-1)
+            rho_new = torch.where(good_pair, 1.0 / torch.where(good_pair, sy, torch.ones_like(sy)),
+                                  torch.zeros_like(sy))
+            S[head] = torch.where(good_pair[:, None], s, torch.zeros_like(s))
+            Y[head] = torch.where(good_pair[:, None], y, torch.zeros_like(y))
+            rho[head] = rho_new
+
+            gnorm = torch.linalg.norm(g_new, dim=-1)
+            f_small = torch.abs(f - f_new) <= ftol * torch.clamp_min(torch.abs(f_new), 1.0)
+            # a row stops when converged (gtol/ftol) or when its line search
+            # cannot find any acceptable step
+            active = active & moved & (gnorm > gtol) & ~f_small
+            # grow the next initial step where we accepted at full step
+            step0 = torch.where(moved, torch.clamp_max(step * 2.0, 1.0), step0)
+            Z, f, g = Z_new, f_new, g_new
+            head = (head + 1) % memory_size
+            it += 1
 
     return BatchedFitResult(params=Z, loss=f, grad_norm=torch.linalg.norm(g, dim=-1),
                             iters=it, converged=~active)

@@ -238,15 +238,26 @@ def test_torch_visualizer_and_plot_frontier_write_pngs(tmp_path):
 
 
 def test_torch_profiling_trace_and_step_timer(tmp_path, monkeypatch):
-    """trace() writes a Chrome trace holding the block's operations;
-    StepTimer times each step, waiting once for every CUDA device that
+    """trace() writes a Chrome trace holding the block's operations and,
+    beside it, the table of the program's spans that the block entered
+    (the table emptied on entry); StepTimer times each step, waiting once for every CUDA device that
     holds a tensor of the result: a tensor, a tuple `(state, loss)` or a
     model tree (the tensors' devices are stubbed here, where there is no
     card). It takes JAX's `result_getter`."""
+    with tprofiling.span("test.before"):
+        pass
+    tprofiling.SPANS["test.stale"] = [1, 1, 1]
     with tprofiling.trace(str(tmp_path / "logdir")):
-        torch.linalg.cholesky(torch.eye(8) * 2.0)
+        with tprofiling.span("test.block"):
+            torch.linalg.cholesky(torch.eye(8) * 2.0)
     with open(tmp_path / "logdir" / "trace.json") as fh:
-        assert "cholesky" in fh.read()
+        text = fh.read()
+        assert "cholesky" in text and "test.block" in text
+    with open(tmp_path / "logdir" / "spans.json") as fh:
+        spans = json.load(fh)
+    assert list(spans) == ["test.block"]
+    assert spans["test.block"]["count"] == 1
+    assert 0 < spans["test.block"]["self_ms"] <= spans["test.block"]["total_ms"]
     timer = tprofiling.StepTimer()
     for _ in range(2):
         with timer.step() as out:
