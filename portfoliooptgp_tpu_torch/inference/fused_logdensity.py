@@ -25,9 +25,22 @@ from portfoliooptgp_tpu_torch.utils.profiling import span
 
 
 def _logp(X, Y, logprior_fn):
+    """The closure holds X fixed: the fused tiers' operands that depend on
+    X alone are built on its first call and kept while the model's
+    structure (`gpr.fused_structure`) stays the same. An X that requires
+    grad is never served kept operands: every call builds its own."""
+    held = None  # (structure, gpr.fused_operands or None)
+
     def logp(stacked):
+        nonlocal held
+        operands = None
+        if not X.requires_grad:
+            key = gpr.fused_structure(stacked.kernel, X.shape[1])
+            if held is None or held[0] != key:
+                held = (key, gpr.fused_operands(stacked, X))
+            operands = held[1]
         lp = -gpr.batched_neg_log_marginal_likelihood(stacked, X, Y, device=X.device,
-                                                      dtype=X.dtype)
+                                                      dtype=X.dtype, operands=operands)
         if logprior_fn is not None:
             lp = lp + logprior_fn(stacked)
         return lp

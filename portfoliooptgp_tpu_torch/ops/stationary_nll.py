@@ -373,8 +373,10 @@ def _general(families, combine, dims, d2s, err, vs, ls, als, noise, mask,
             raise ValueError(f"unknown stationary family: {f}")
     if len(d2s) != sum(dims) or len(ls) != sum(dims):
         raise ValueError("d2s and ls need sum(dims) entries")
+    if not isinstance(d2s, torch.Tensor):
+        d2s = torch.stack(tuple(d2s))
     return _GeneralNLL.apply(
-        families, combine, dims, plain, torch.stack(tuple(d2s)), err,
+        families, combine, dims, plain, d2s, err,
         torch.stack(tuple(vs)), torch.stack(tuple(ls)), torch.stack(tuple(als)),
         noise, mask)
 
@@ -388,8 +390,9 @@ def batched_nll_stationary_general(families, d2s, err, vs, ls, als, noise,
     lengthscales (periods for 'periodic_se', ones for 'linear'); vs/als J
     tuples of (B,) variances and second shape parameters (RQ α, the
     periodic base lengthscale, ones elsewhere); noise (B,); mask (B, N) of
-    1/0 (rows with mask 0 are identity rows). Returns (B,) NLLs with the 2π
-    constant at the full N."""
+    1/0 (rows with mask 0 are identity rows). d2s may also come stacked,
+    one (Σ dims, N, N) tensor, taken as it is. Returns (B,) NLLs with the
+    2π constant at the full N."""
     return _general(families, "prod", dims, d2s, err, vs, ls, als, noise,
                     mask, plain=False)
 

@@ -33,7 +33,8 @@ from portfoliooptgp_tpu_torch.device import DEFAULT_DEVICE, DEFAULT_DTYPE, as_te
 from portfoliooptgp_tpu_torch.models import gpr as gpr_mod
 from portfoliooptgp_tpu_torch.models.gpr import GPR
 from portfoliooptgp_tpu_torch.ops import linalg
-from portfoliooptgp_tpu_torch.params import batch_size, ravel, tree_map, tree_to, unravel
+from portfoliooptgp_tpu_torch.params import (batch_size, ravel, tree_leaves, tree_map, tree_to,
+                                             unravel)
 from portfoliooptgp_tpu_torch.parallel import mesh as mesh_mod
 from portfoliooptgp_tpu_torch.train import batched_lbfgs, lbfgs
 from portfoliooptgp_tpu_torch.utils.profiling import span
@@ -127,8 +128,10 @@ def batched_walk_forward(
     must divide D·R; the device is the mesh's.
 
     The call records the tier its loss runs in `gpr.DISPATCH_EVENTS`, by
-    the router's names, and is the span `walk_forward.call`; the fused
-    loss's operand build is the span `router.dispatch`."""
+    the router's names, and is the span `walk_forward.call`. The fused
+    loss's shared matrices are built once a call (the span
+    `router.operands`); its per-model operands, an evaluation's, are the
+    span `router.dispatch`."""
     with span("walk_forward.call"):
         dev = resolve_device(device) if mesh is None else mesh.device
         X_full = as_tensor(X_full, dev, dtype)
@@ -169,37 +172,47 @@ def batched_walk_forward(
         from portfoliooptgp_tpu_torch.ops import stationary_nll as st_mod
 
         f32 = dtype == torch.float32
-        use_fused = f32 and st_mod.fused_nll_supported(n_full)
         n_eff_dr = torch.sum(masks_dr, dim=1)
-        spec_probe = gpr_mod.fused_stationary_spec(stacked, X_full) if use_fused else None
+        # the kernels' 2π constant uses the full N; restate it for n_eff
+        restate = 0.5 * (n_full - n_eff_dr) * LOG_2PI
+        # X, Y and the masks are fixed for the call: the fused loss's operands
+        # that depend on them alone are built here, once, unless X or Y
+        # carries a gradient
+        operands = (gpr_mod.fused_operands(stacked, X_full)
+                    if f32 and st_mod.fused_nll_supported(n_full) else None)
+        fixed = not (X_full.requires_grad or Y_full.requires_grad)
 
-        if spec_probe is not None:
+        if operands is not None:
             # fused masked path: K is built inside the kernel from the shared
             # per-atom distance matrices and each day's prefix mask
-            tier = f"fused_general_{spec_probe.combine}"
+            tier = f"fused_general_{operands.key.combine}"
+            held = operands if fixed else None
+            err_held = None
+            if fixed and not tree_leaves(stacked.mean_function):
+                mu = mean_rows(stacked, X_full, masks_dr.shape[0])
+                err_held = (Y_full[None, :, 0] - mu) * masks_dr
 
             def batched_loss(ms):
                 with span("router.dispatch"):
-                    spec = gpr_mod.fused_stationary_spec(ms, X_full)
-                    mu = mean_rows(ms, X_full, masks_dr.shape[0])
-                    err = (Y_full[None, :, 0] - mu) * masks_dr
+                    spec = gpr_mod.fused_stationary_spec(ms, X_full, operands=held)
+                    err = err_held
+                    if err is None:
+                        mu = mean_rows(ms, X_full, masks_dr.shape[0])
+                        err = (Y_full[None, :, 0] - mu) * masks_dr
                 fused = (st_mod.batched_nll_stationary_sum if spec.combine == "sum"
                          else st_mod.batched_nll_stationary_general)
-                nll = fused(spec.families, spec.d2s, err, spec.vs, spec.ls, spec.als,
+                nll = fused(spec.families, spec.d2_stack, err, spec.vs, spec.ls, spec.als,
                             ms.likelihood.variance, masks_dr, dims=spec.dims)
-                # the kernel's 2π constant uses the full N; restate it for n_eff
-                return nll - 0.5 * (n_full - n_eff_dr) * LOG_2PI
+                return nll - restate
         elif f32 and nll_mod.pallas_nll_supported(n_full):
             # the dense kernel on the masked system, which carries its own
             # diagonal (mask·σ² + 1 − mask): zero added noise
             tier = "pallas_dense"
+            no_noise = torch.zeros_like(n_eff_dr)
 
             def batched_loss(ms):
                 Kb, errb = masked_system(ms, X_full, Y_full, masks_dr)
-                nll = nll_mod.batched_nll(Kb, errb[:, :, 0],
-                                          torch.zeros_like(n_eff_dr))
-                # the kernel's 2π constant uses the full N; restate it for n_eff
-                return nll - 0.5 * (n_full - n_eff_dr) * LOG_2PI
+                return nll_mod.batched_nll(Kb, errb[:, :, 0], no_noise) - restate
         elif f32 and (blocked_mod.blocked_nll_preferred(n_full)
                       or blocked_mod.hinv_nll_preferred(n_full, D * R)):
             # large-N masked rows through the blocked tiers (the panel kernel,
@@ -208,11 +221,11 @@ def batched_walk_forward(
             tier = "blocked" if blocked_mod.blocked_nll_preferred(n_full) else "blocked_hinv"
             tier_fn = (blocked_mod.batched_nll_blocked if tier == "blocked"
                        else blocked_mod.batched_nll_hinv)  # gated on D·R above
+            no_noise = torch.zeros_like(n_eff_dr)
 
             def batched_loss(ms):
                 Kb, errb = masked_system(ms, X_full, Y_full, masks_dr)
-                nll = tier_fn(Kb, errb[:, :, 0], torch.zeros_like(n_eff_dr))
-                return nll - 0.5 * (n_full - n_eff_dr) * LOG_2PI
+                return tier_fn(Kb, errb[:, :, 0], no_noise) - restate
         else:
             tier = "xla"
 

@@ -137,7 +137,11 @@ def test_torch_nuts_step_spans_count_its_leaves():
 
     C = 4
     q = ravel(model0).expand(C, -1) + 0.05 * torch.randn(C, 4, generator=g, dtype=dtype)
-    logp, grad = vg_flat(q)
+    profiling.reset_spans()
+    with _profiled():
+        logp, grad = vg_flat(q)
+    # the closure's first call builds X's operands, once for its whole life
+    assert profiling.SPANS["router.operands"][0] == 1
     calls.clear()
     key = GeneratorSource(C, torch.Generator().manual_seed(5))
     inv_mass = torch.ones(C, 4, dtype=dtype)
@@ -146,6 +150,7 @@ def test_torch_nuts_step_spans_count_its_leaves():
         q1, _, _, info = nuts.nuts_step(vg_flat, q, logp, key, 0.2, inv_mass, 5, grad0=grad)
     assert gpr.DISPATCH_EVENTS[-1]["tier"] == "fused_general_prod"
     spans = dict(profiling.SPANS)
+    assert "router.operands" not in spans  # no leaf rebuilt them
     leaves = spans["nuts.leaf"][0]
     assert leaves == spans["logdensity.value_and_grad"][0] == len(calls) > 1
     assert spans["nll.backward"][0] == spans["router.dispatch"][0] == leaves
@@ -159,8 +164,8 @@ def test_torch_nuts_step_spans_count_its_leaves():
 
 def test_torch_walk_forward_records_its_tier_and_spans():
     """The walk-forward records the tier its loss runs by the router's
-    names, once a call, and its fused loss's operand build is a span, one
-    an evaluation."""
+    names, once a call; its fused loss builds the shared matrices once a
+    call and the per-model operands once an evaluation, each a span."""
     from portfoliooptgp_tpu_torch.pipelines import walk_forward as wf
 
     g = torch.Generator().manual_seed(1)
@@ -193,6 +198,7 @@ def test_torch_walk_forward_records_its_tier_and_spans():
     assert list(gpr.DISPATCH_EVENTS) == [{"tier": "fused_general_prod", "n": 30, "batch": 6}]
     spans = dict(profiling.SPANS)
     assert spans["walk_forward.call"][0] == 1
+    assert spans["router.operands"][0] == 1  # X's operands, once a call
     assert spans["router.dispatch"][0] == len(calls)
     assert spans["lbfgs.value"][0] + spans["lbfgs.gradient"][0] == len(calls)
     assert spans["walk_forward.call"][1] >= spans["lbfgs.iteration"][1]
