@@ -10,7 +10,10 @@ control: the reference in the precision below the configuration's (TF32
 for float32), put in the program's place at the same inputs and
 parameters. `--fault` plants a fault in the program, the configuration
 unchanged: `maxiter=20` stops every L-BFGS fit after 20 iterations,
-`depth=3` cuts every NUTS tree at depth 3. One JSON line per seed, then the largest
+`depth=3` cuts every NUTS tree at depth 3, `half=1` leaves half of the
+L-BFGS batch out (the second half's losses replaced by the mean of the
+first's), `alter=50` moves every day-ahead mean by 50/1000 of the target's
+std. One JSON line per seed, then the largest
 program reading and the smallest control reading of each number, beside
 the cell's limits. The benchmark's runs do not run this.
 """
@@ -39,6 +42,31 @@ def plant(name, n):
         step = mod.nuts_step
         mod.nuts_step = lambda vg, q, logp, key, eps, inv_mass, _, **kw: step(
             vg, q, logp, key, eps, inv_mass, n, **kw)
+    elif name == "half":
+        import torch
+
+        from portfoliooptgp_tpu_torch.train import batched_lbfgs as mod
+
+        fit = mod.fit_matrix
+
+        def half_fit(loss, Z0, **kw):
+            def half(Z):
+                f = loss(Z)
+                h = f.shape[0] // 2
+                return torch.cat([f[:h], f[:h].mean().expand(f.shape[0] - h)])
+            return fit(half, Z0, **kw)
+
+        mod.fit_matrix = half_fit
+    elif name == "alter":
+        from portfoliooptgp_tpu_torch.pipelines import walk_forward as mod
+
+        predict = mod.masked_predict_next
+
+        def altered(*args):
+            mean, var = predict(*args)
+            return mean + n * 1e-3, var
+
+        mod.masked_predict_next = altered
     else:
         raise SystemExit(f"unknown fault {name!r}")
 

@@ -114,6 +114,7 @@ def measure(cell, device, seconds, traced, spans=()):
             stack.enter_context(trace_mod.spans(spans))
             prof.start()
             stack.callback(prof.stop)
+            _reset_program_spans()
             stack.enter_context(torch.profiler.record_function(trace_mod.WINDOW))
         t0 = time.perf_counter()
         before = 0.0
@@ -131,6 +132,14 @@ def measure(cell, device, seconds, traced, spans=()):
     c1 = cell.counters()
     summary = trace_mod.summarize(trace_mod.events(prof)) if traced else None
     return work, units, steps, {k: c1[k] - c0[k] for k in c1}, summary
+
+
+def _reset_program_spans():
+    """Empty the program's span table (`profiling.SPANS`, filled only while
+    a profiler runs), so that its counts cover this traced window alone."""
+    profiling = sys.modules.get("portfoliooptgp_tpu_torch.utils.profiling")
+    if profiling is not None:
+        profiling.reset_spans()
 
 
 def check(cell, limits, control=None, nan=float("inf")):

@@ -7,6 +7,12 @@ the universe's assets, call after call. The set-up's call, which warms the
 shapes, runs on one asset of a market drawn from the seed; its outputs are
 checked with the window's.
 
+The traffic may name the NLL tier that the call has to take (`"tier"`:
+`fused_general_<combine>`, `blocked` or `blocked_hinv`, as the walk-forward
+records it in `gpr.DISPATCH_EVENTS`); the set-up's call must record it at
+the cell's N and batch and, on the card, move that tier's launch counter.
+Without `"tier"` the call has to run the fused stationary kernel.
+
 `batched_walk_forward` keeps only each day's best restart; the harness
 wraps `batched_lbfgs.fit_batched_fused` to keep the whole
 `BatchedFitResult` that the call computed (every row's parameters, loss
@@ -24,18 +30,33 @@ from gpbench.kinds import stationary_launches
 from gpbench.reference import gp as ref
 from gpbench.reference.gp import worst_of
 from portfoliooptgp_tpu_torch import kernels
+from portfoliooptgp_tpu_torch.models import gpr
 from portfoliooptgp_tpu_torch.models.gpr import GPR
+from portfoliooptgp_tpu_torch.ops import blocked_nll as blocked_mod
+from portfoliooptgp_tpu_torch.ops import nll as nll_mod
 from portfoliooptgp_tpu_torch.ops import stationary_nll as st_mod
 from portfoliooptgp_tpu_torch.params import tree_leaves
 from portfoliooptgp_tpu_torch.pipelines import walk_forward as wf_mod
 from portfoliooptgp_tpu_torch.train import batched_lbfgs
 
 UNIT = "forecasts"
+# ulps of a raw parameter by which the program's start may differ from the
+# reference's (the program rounds the configuration's values, then
+# inverts softplus, in its own dtype)
+_ROUNDING_ULPS = 16
+# the tiers a traffic file may name, with the launch counter each moves on
+# the card: (module's counter table, key, name in counters())
+TIERS = {"fused_general_prod": (st_mod.LAUNCHES, "stationary_nll_general", None),
+         "fused_general_sum": (st_mod.LAUNCHES, "stationary_nll_general", None),
+         "blocked": (blocked_mod.LAUNCHES, "blocked_panel", "panel_launches"),
+         "blocked_hinv": (nll_mod.LAUNCHES, "triangular_inverse", "trinv_launches")}
 # layer spans of the traced run: (module, attribute, layer)
 _PKG = "portfoliooptgp_tpu_torch."
 SPANS = ((_PKG + "train.batched_lbfgs", "fit_matrix", "optimizer"),
          (_PKG + "models.gpr", "fused_stationary_spec", "router"),
          (_PKG + "ops.stationary_nll", "batched_nll_stationary_general", "nll_forward"),
+         (_PKG + "ops.blocked_nll", "batched_nll_blocked", "nll_forward"),
+         (_PKG + "ops.blocked_nll", "batched_nll_hinv", "nll_forward"),
          (_PKG + "pipelines.walk_forward", "masked_predict_next", "predict"))
 
 
@@ -74,13 +95,34 @@ class Cell:
         # from the seed (checked with the window's calls, so each seed adds
         # data of its own), and hold the tier it ran
         Xp, Yp = (torch.as_tensor(a) for a in market.walk_forward_universe(seed, n_full, 1))
-        before = st_mod.LAUNCHES["stationary_nll_general"]
-        self._call(Xp, Yp[0], "probe")
-        fused = st_mod.fused_nll_supported(n_full) and (
-            self.device.type != "cuda" or st_mod.LAUNCHES["stationary_nll_general"] > before)
-        if not fused:
-            raise RuntimeError("the walk-forward did not run the fused stationary NLL")
+        self.tier = traffic.get("tier")
+        if self.tier is None:
+            before = st_mod.LAUNCHES["stationary_nll_general"]
+            self._call(Xp, Yp[0], "probe")
+            fused = st_mod.fused_nll_supported(n_full) and (
+                self.device.type != "cuda" or st_mod.LAUNCHES["stationary_nll_general"] > before)
+            if not fused:
+                raise RuntimeError("the walk-forward did not run the fused stationary NLL")
+        else:
+            if self.tier not in TIERS:
+                raise ValueError(f"unknown tier {self.tier!r}; known: {sorted(TIERS)}")
+            table, key, _ = TIERS[self.tier]
+            before, last = table[key], gpr.DISPATCH_EVENTS[-1] if gpr.DISPATCH_EVENTS else None
+            self._call(Xp, Yp[0], "probe")
+            self._hold_tier(_recorded_since(last), table[key] - before)
         self.probe, self.calls = self.calls, []
+
+    def _hold_tier(self, events, launches):
+        """Raise unless the probe's fit recorded the traffic's tier at the
+        cell's N and batch and, on the card, launched that tier's kernel."""
+        B, N = self.shape["B"], self.shape["N"]
+        fit = [e for e in events if e["n"] == N and e["batch"] == B]
+        if not fit or any(e["tier"] != self.tier for e in fit):
+            raise RuntimeError(f"the walk-forward at N={N}, batch {B} did not take the tier "
+                               f"{self.tier!r}: it recorded {events}")
+        if self.device.type == "cuda" and launches <= 0:
+            raise RuntimeError(f"the walk-forward recorded the tier {self.tier!r} but did not "
+                               "launch its kernel")
 
     def _make_model(self, noise_variance):
         kern = kernels.composite_kernel(self.X64.shape[1], *self.kernel, device=self.device,
@@ -113,7 +155,12 @@ class Cell:
             f_mean=res.f_mean.cpu(), f_var=res.f_var.cpu()))
 
     def counters(self) -> dict:
-        return stationary_launches(self.device)
+        out = stationary_launches(self.device)
+        if out and self.tier:
+            table, key, name = TIERS[self.tier]
+            if name:
+                out[name] = table[key]
+        return out
 
     def release(self):
         """Free the program's state; the window's outputs stay on the host."""
@@ -174,7 +221,10 @@ class Cell:
           target) and variance (over the prior variance) against the
           reference posterior of the returned model;
         - unmoved_share: the share of rows whose reference NLL did not fall
-          below its value at the start;
+          below its value at the start by more than the start's rounding
+          to the program's dtype can account for (a few ulps of each raw
+          parameter, to first order: a float32 row left where it started
+          reads a hair below the float64 start);
         - fit_stall: how far the fits stopped short of a stationary point:
           of the ratios of the reference gradient's norm at a row's
           returned parameters to its norm at the row's start, the 90th
@@ -202,7 +252,9 @@ class Cell:
                 v0, g0 = (t.cpu() for t in ref.wf_nll_and_grad(X, y, z0.to(dev), n, ref.F64))
                 start_norms.append(torch.linalg.norm(g0, dim=-1))
                 stall.append(torch.linalg.norm(g, dim=-1) / start_norms[-1])
-                unmoved += int(torch.sum(~(v < v0)))
+                slack = _ROUNDING_ULPS * torch.finfo(self.dtype).eps * torch.sum(
+                    torch.abs(g0) * torch.clamp_min(torch.abs(z0), 1.0), dim=-1)
+                unmoved += int(torch.sum(~(v < v0 - slack)))
                 rows_seen += R
                 rel = torch.abs(loss[d] - v) / torch.clamp_min(torch.abs(v), 1.0)
                 worst["nll_gap"] = max(worst["nll_gap"], worst_of(rel, nan))
@@ -224,3 +276,13 @@ class Cell:
         return dict(worst, unmoved_share=unmoved / max(rows_seen, 1),
                     fit_stall=float(torch.quantile(stall, 0.9, interpolation="higher")),
                     iters_max=max((c["iters"] for c in outputs), default=0))
+
+
+def _recorded_since(last):
+    """The entries of `gpr.DISPATCH_EVENTS` appended after the entry `last`
+    (None: every entry)."""
+    events = list(gpr.DISPATCH_EVENTS)
+    for i in range(len(events) - 1, -1, -1):
+        if events[i] is last:
+            return events[i + 1:]
+    return events

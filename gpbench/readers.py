@@ -9,6 +9,8 @@ from __future__ import annotations
 from gpbench import costs
 
 CLUSTER = "stationary_nll_cluster_kernel"
+PANEL = "blocked_panel_kernel"
+PANEL_WIDTH = 128  # columns of a panel of the blocked tier
 
 
 def rate(run, unit):
@@ -74,4 +76,56 @@ def step_mfu_pct(run):
     s = run.shape
     flops = sum(n * costs.nll_flops(s["B"], s["N"], s["J"], s["JD"], with_gradient=w)
                 for w, (n, _) in launches.items())
+    return 100.0 * flops / run.trace.window_s / costs.PEAK_FP32_FLOPS
+
+
+def _kernel(run, name):
+    """(launches, seconds) of the traced kernels whose name holds `name`."""
+    found = [v for k, v in (run.trace.kernels.items() if run.trace else ()) if name in k]
+    return sum(n for n, _ in found), sum(s for _, s in found)
+
+
+def panel_roofline_pct(run):
+    """The least time of the panel kernel's launches over their traced time.
+    An evaluation of the blocked factor at N launches one panel of each
+    height N − 128k, k < ⌈N/128⌉, at the cell's batch B, so the launches
+    over ⌈N/128⌉ count the evaluations, and each evaluation's least time
+    is Σₖ `costs.panel_bound_ms(N − 128k, B)`."""
+    n, seconds = _kernel(run, PANEL)
+    if not n or seconds <= 0:
+        return None
+    B, N = run.shape["B"], run.shape["N"]
+    heights = range(N, 0, -PANEL_WIDTH)
+    per_eval = sum(costs.panel_bound_ms(nt, B)[0] for nt in heights) * 1e-3
+    return 100.0 * n / len(heights) * per_eval / seconds
+
+
+def evaluations(spans):
+    """(value-only, with gradient) NLL evaluations of the optimizer: the
+    counts of the program's spans `lbfgs.value` and `lbfgs.gradient`, or
+    None where it recorded neither."""
+    value, grad = spans.get("lbfgs.value"), spans.get("lbfgs.gradient")
+    if not value and not grad:
+        return None
+    return (value[0] if value else 0), (grad[0] if grad else 0)
+
+
+def evals_per(run, spans, unit):
+    """The optimizer's NLL evaluations, value-only and with gradient, per
+    unit of work (the last unit whole, as the spans count it)."""
+    evals, n = evaluations(spans), run.units.get(unit)
+    return None if evals is None or not n else sum(evals) / n
+
+
+def span_mfu_pct(run, spans):
+    """The operations of the window's NLL evaluations at the cell's shape
+    (`costs.nll_flops`, counted by the optimizer's spans, whatever tier or
+    kernel computes them) over the traced window at the fp32 peak; None
+    where no operation ran on a device."""
+    evals = evaluations(spans)
+    if evals is None or run.trace is None or run.trace.busy_s <= 0:
+        return None
+    s = run.shape
+    flops = sum(n * costs.nll_flops(s["B"], s["N"], s["J"], s["JD"], with_gradient=w)
+                for n, w in zip(evals, (False, True)))
     return 100.0 * flops / run.trace.window_s / costs.PEAK_FP32_FLOPS

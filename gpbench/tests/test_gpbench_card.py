@@ -13,7 +13,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["wf2y_d20r4", "nuts512_c128"])
+@pytest.mark.parametrize("cell", ["wf2y_d20r4", "nuts512_c128", "wf3y_d20r4"])
 def test_cell_runs_correct_on_the_card(card, cell):
     out = subprocess.run([sys.executable, "gpbench/run.py", "--workload", cell, "--seed",
                           "3000000017", "--seconds", "2", "--trace", "0"],
