@@ -26,6 +26,7 @@ from portfoliooptgp_tpu_torch.inference import nuts as nuts_mod
 from portfoliooptgp_tpu_torch.inference.source import GeneratorSource
 from portfoliooptgp_tpu_torch.params import ravel, tree_leaves, tree_replace, tree_to, unravel
 from portfoliooptgp_tpu_torch.parallel.mesh import stream_seed
+from portfoliooptgp_tpu_torch.utils.profiling import span
 
 
 def centered_normal_logprior(init_params, scale: float = 2.0):
@@ -138,6 +139,24 @@ def _warmup_and_sample_flat(
     return qs, stats
 
 
+def flat_value_and_grad(logdensity_fn: Callable, template):
+    """(vg, flat0) of the flat log-density `sample_nuts` samples:
+    vg(z (C, dim)) → (logp (C,), grad (C, dim)) of `logdensity_fn` at the
+    stacked models `unravel(template, z)`, the gradient by autograd, both
+    detached; flat0 = `ravel(template)` (1, dim). `template` is one model
+    with detached leaves. An evaluation is the span
+    `logdensity.value_and_grad`."""
+
+    def vg(z):
+        with span("logdensity.value_and_grad"), torch.enable_grad():
+            z = z.detach().requires_grad_(True)
+            v = logdensity_fn(unravel(template, z))
+            (g,) = torch.autograd.grad(v.sum(), z)
+        return v.detach(), g
+
+    return vg, ravel(template)
+
+
 def _source(source, chains: int, device, seed: int = 0):
     if source is None:
         source = torch.Generator(device=device).manual_seed(seed)
@@ -201,17 +220,10 @@ def sample_nuts(
     dev = resolve_device(device) if mesh is None else mesh.device
     template = tree_to(init_params, dev, tree_leaves(init_params)[0].dtype)
     template = tree_replace(template, [x.detach() for x in tree_leaves(template)])
-    flat0 = ravel(template)  # (1, dim)
+    autograd_vg, flat0 = flat_value_and_grad(logdensity_fn, template)  # flat0 (1, dim)
 
     def logp_flat(z):
         return logdensity_fn(unravel(template, z))
-
-    def autograd_vg(z):
-        with torch.enable_grad():
-            z = z.detach().requires_grad_(True)
-            v = logp_flat(z)
-            (g,) = torch.autograd.grad(v.sum(), z)
-        return v.detach(), g
 
     grad_flat = None
     if grad_fn is not None:

@@ -21,6 +21,11 @@ raw_kappa; for the frontier pipeline's SE kernel:
 `ICMGPR.create` draws W from a `torch.Generator`, which cannot repeat the
 JAX package's `jax.random.normal(PRNGKey(seed))`: runs held against the
 JAX package start from its W, carried by `params.from_jax_leaves`.
+
+The `_chol` NLLs record their tier in `gpr.DISPATCH_EVENTS` as
+`icm.<tier>` (N, and the batch of shifted problems: P, or C·P), and their
+host work up to the tier's call (B, eigh(B), the rotation of Y, the tier,
+the fused tier's d2 or the others' Kx) is the span `icm.nll`.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from portfoliooptgp_tpu_torch.kernels.base import Kernel
+from portfoliooptgp_tpu_torch.models.gpr import _record_tier
 from portfoliooptgp_tpu_torch.models.likelihoods import Gaussian
 from portfoliooptgp_tpu_torch.ops import blocked_nll as blocked_mod
 from portfoliooptgp_tpu_torch.ops import linalg
@@ -39,6 +45,7 @@ from portfoliooptgp_tpu_torch.ops import nll as nll_mod
 from portfoliooptgp_tpu_torch.ops import stationary_nll as st_mod
 from portfoliooptgp_tpu_torch.ops.linalg import safe_eigh
 from portfoliooptgp_tpu_torch.params import positive, positive_inv, tree_leaves
+from portfoliooptgp_tpu_torch.utils.profiling import span
 
 EIG_JITTER = 1e-10
 LOG2PI = math.log(2.0 * math.pi)
@@ -164,22 +171,26 @@ def neg_log_marginal_likelihood_chol(model: ICMGPR, X, Y):
     from portfoliooptgp_tpu_torch.kernels import stationary as st_kernels
 
     n, p = Y.shape
-    lam_b, E = safe_eigh(model.B)
-    err = (Y @ E).T  # (P, N): per-output residuals in B's eigenbasis
-    noise = model.likelihood.variance.expand(p)
-    tier = nll_chol_tier(model, X, Y)
+    with span("icm.nll"):
+        lam_b, E = safe_eigh(model.B)
+        err = (Y @ E).T  # (P, N): per-output residuals in B's eigenbasis
+        noise = model.likelihood.variance.expand(p)
+        tier = nll_chol_tier(model, X, Y)
+        _record_tier("icm." + tier, n, p)
+        if tier == "fused":
+            Xs = model.kernel.slice_x(X)
+            d2 = st_kernels.scaled_squared_distance(
+                Xs, Xs, torch.ones((), dtype=Xs.dtype, device=Xs.device))
+            v = lam_b * model.kernel.variance
+            ell = model.kernel.lengthscales.expand(p)
+            fam = st_kernels.FUSED_FAMILY_OF[type(model.kernel)]
+        else:
+            Kx = model.kernel.K(X)[0]  # built once, shared by all P outputs
+            Kb = lam_b[:, None, None] * Kx[None]
+            fn = {"dense": nll_mod.batched_nll, "blocked": blocked_mod.batched_nll_blocked,
+                  "hinv": blocked_mod.batched_nll_hinv, "plain": _plain_nll}[tier]
     if tier == "fused":
-        Xs = model.kernel.slice_x(X)
-        d2 = st_kernels.scaled_squared_distance(
-            Xs, Xs, torch.ones((), dtype=Xs.dtype, device=Xs.device))
-        v = lam_b * model.kernel.variance
-        ell = model.kernel.lengthscales.expand(p)
-        fam = st_kernels.FUSED_FAMILY_OF[type(model.kernel)]
         return torch.sum(st_mod.batched_nll_stationary(d2, err, v, ell, noise, fam))
-    Kx = model.kernel.K(X)[0]  # built once, shared by all P outputs
-    Kb = lam_b[:, None, None] * Kx[None]
-    fn = {"dense": nll_mod.batched_nll, "blocked": blocked_mod.batched_nll_blocked,
-          "hinv": blocked_mod.batched_nll_hinv, "plain": _plain_nll}[tier]
     return torch.sum(fn(Kb, err, noise))
 
 
@@ -196,25 +207,29 @@ def batched_neg_log_marginal_likelihood_chol(stacked, X, Y):
 
     n, p = Y.shape
     c = stacked.W.shape[0]
-    W = stacked.W
-    B = W @ W.transpose(-1, -2) + torch.diag_embed(positive(stacked.raw_kappa))
-    lam_b, E = safe_eigh(B)  # (C, P), (C, P, P)
-    err = (Y @ E).transpose(-1, -2).reshape(c * p, n)  # per chain, per eigenpair
-    noise = stacked.likelihood.variance[:, None].expand(c, p).reshape(-1)
-    tier = nll_chol_tier(stacked, X, Y)
+    with span("icm.nll"):
+        W = stacked.W
+        B = W @ W.transpose(-1, -2) + torch.diag_embed(positive(stacked.raw_kappa))
+        lam_b, E = safe_eigh(B)  # (C, P), (C, P, P)
+        err = (Y @ E).transpose(-1, -2).reshape(c * p, n)  # per chain, per eigenpair
+        noise = stacked.likelihood.variance[:, None].expand(c, p).reshape(-1)
+        tier = nll_chol_tier(stacked, X, Y)
+        _record_tier("icm." + tier, n, c * p)
+        if tier == "fused":
+            Xs = stacked.kernel.slice_x(X)
+            d2 = st_kernels.scaled_squared_distance(
+                Xs, Xs, torch.ones((), dtype=Xs.dtype, device=Xs.device))
+            v = (lam_b * stacked.kernel.variance[:, None]).reshape(-1)
+            ell = stacked.kernel.lengthscales[:, None].expand(c, p).reshape(-1)
+            fam = st_kernels.FUSED_FAMILY_OF[type(stacked.kernel)]
+        else:
+            Kx = stacked.kernel.K(X)  # (C, N, N), one per chain, shared by its P outputs
+            Kb = (lam_b[:, :, None, None] * Kx[:, None]).reshape(c * p, n, n)
+            fn = {"dense": nll_mod.batched_nll, "blocked": blocked_mod.batched_nll_blocked,
+                  "hinv": blocked_mod.batched_nll_hinv, "plain": _plain_nll}[tier]
     if tier == "fused":
-        Xs = stacked.kernel.slice_x(X)
-        d2 = st_kernels.scaled_squared_distance(
-            Xs, Xs, torch.ones((), dtype=Xs.dtype, device=Xs.device))
-        v = (lam_b * stacked.kernel.variance[:, None]).reshape(-1)
-        ell = stacked.kernel.lengthscales[:, None].expand(c, p).reshape(-1)
-        fam = st_kernels.FUSED_FAMILY_OF[type(stacked.kernel)]
         losses = st_mod.batched_nll_stationary(d2, err, v, ell, noise, fam)
     else:
-        Kx = stacked.kernel.K(X)  # (C, N, N), one per chain, shared by its P outputs
-        Kb = (lam_b[:, :, None, None] * Kx[:, None]).reshape(c * p, n, n)
-        fn = {"dense": nll_mod.batched_nll, "blocked": blocked_mod.batched_nll_blocked,
-              "hinv": blocked_mod.batched_nll_hinv, "plain": _plain_nll}[tier]
         losses = fn(Kb, err, noise)
     return torch.sum(losses.reshape(c, p), dim=-1)
 

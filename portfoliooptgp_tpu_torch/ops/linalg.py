@@ -5,12 +5,15 @@ here, as XLA did in the reference. A failed factorization gives NaN, as
 `jnp.linalg.cholesky` does, so callers see a non-finite loss instead of an
 exception. `cholesky_guarded`, `safe_cholesky` and `cholesky_inverse_pair`
 carry the JAX package's hand-written VJPs as `torch.autograd.Function`s:
-a failed factor gives zero gradients instead of NaN ones.
+a failed factor gives zero gradients instead of NaN ones. `safe_eigh`'s
+forward is the span `linalg.eigh`, its backward `linalg.eigh_backward`.
 """
 
 from __future__ import annotations
 
 import torch
+
+from portfoliooptgp_tpu_torch.utils.profiling import span
 
 JITTER_LADDER = (0.0, 1e-8, 1e-6, 1e-4, 1e-2)
 
@@ -64,32 +67,34 @@ class _SafeEigh(torch.autograd.Function):
         # torch.linalg.eigh raises where jnp.linalg.eigh returns NaN: a
         # matrix with a non-finite entry is factored as I and given NaN
         # outputs (and NaN gradients), the others as they are
-        ok = torch.isfinite(A).flatten(-2).all(-1)[..., None]
-        eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
-        lam, E = torch.linalg.eigh(torch.where(ok[..., None], A, eye))
-        nan = torch.full((), float("nan"), dtype=A.dtype, device=A.device)
-        lam, E = torch.where(ok, lam, nan), torch.where(ok[..., None], E, nan)
-        ctx.save_for_backward(lam, E)
-        return lam, E
+        with span("linalg.eigh"):
+            ok = torch.isfinite(A).flatten(-2).all(-1)[..., None]
+            eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+            lam, E = torch.linalg.eigh(torch.where(ok[..., None], A, eye))
+            nan = torch.full((), float("nan"), dtype=A.dtype, device=A.device)
+            lam, E = torch.where(ok, lam, nan), torch.where(ok[..., None], E, nan)
+            ctx.save_for_backward(lam, E)
+            return lam, E
 
     @staticmethod
     def backward(ctx, lam_bar, E_bar):
-        lam, E = ctx.saved_tensors
-        if lam_bar is None:
-            lam_bar = torch.zeros_like(lam)
-        if E_bar is None:
-            E_bar = torch.zeros_like(E)
-        d = lam[..., None, :] - lam[..., :, None]  # d_ij = λ_j − λ_i
-        scale = torch.clamp_min(torch.amax(torch.abs(lam), dim=-1), 1.0)[..., None, None]
-        eps = 64.0 * torch.finfo(lam.dtype).eps * scale
-        big = torch.abs(d) > eps
-        F = torch.where(big, 1.0 / torch.where(big, d, torch.ones_like(d)),
-                        torch.zeros_like(d))
-        Et = E.transpose(-1, -2)
-        M = F * (Et @ E_bar)
-        Abar = E @ (torch.diag_embed(lam_bar) + 0.5 * (M + M.transpose(-1, -2))) @ Et
-        # the input is constrained symmetric: symmetrize the cotangent
-        return 0.5 * (Abar + Abar.transpose(-1, -2))
+        with span("linalg.eigh_backward"):
+            lam, E = ctx.saved_tensors
+            if lam_bar is None:
+                lam_bar = torch.zeros_like(lam)
+            if E_bar is None:
+                E_bar = torch.zeros_like(E)
+            d = lam[..., None, :] - lam[..., :, None]  # d_ij = λ_j − λ_i
+            scale = torch.clamp_min(torch.amax(torch.abs(lam), dim=-1), 1.0)[..., None, None]
+            eps = 64.0 * torch.finfo(lam.dtype).eps * scale
+            big = torch.abs(d) > eps
+            F = torch.where(big, 1.0 / torch.where(big, d, torch.ones_like(d)),
+                            torch.zeros_like(d))
+            Et = E.transpose(-1, -2)
+            M = F * (Et @ E_bar)
+            Abar = E @ (torch.diag_embed(lam_bar) + 0.5 * (M + M.transpose(-1, -2))) @ Et
+            # the input is constrained symmetric: symmetrize the cotangent
+            return 0.5 * (Abar + Abar.transpose(-1, -2))
 
 
 def safe_eigh(A):

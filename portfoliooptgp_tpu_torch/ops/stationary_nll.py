@@ -439,27 +439,28 @@ class _SingleNLL(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        family = ctx.family
-        d2, err, v, l, nz, W, a = ctx.saved_tensors
-        Wt = W.transpose(-1, -2)
-        Kinv = Wt @ W
-        alpha = (Wt @ a[..., None])[..., 0]
-        dKbar = g[:, None, None] * 0.5 * (
-            Kinv - alpha[:, :, None] * alpha[:, None, :])
-        s = 1.0 / (l * l)
-        u = s[:, None, None] * d2[None]
-        E = _phi(family, u)
-        dphi = _phi_prime(family, u)
-        dv = torch.sum(dKbar * E, dim=(1, 2))
-        darg = v[:, None, None] * dKbar * dphi  # ∂NLL/∂u elementwise
-        ds = torch.sum(darg * d2[None], dim=(1, 2))
-        dl = ds * (-2.0 / (l * l * l))
-        dd2 = (torch.sum(s[:, None, None] * darg, dim=0)
-               if ctx.needs_input_grad[2] else None)
-        dnoise = g * 0.5 * (torch.diagonal(Kinv, dim1=-2, dim2=-1).sum(-1)
-                            - torch.sum(alpha * alpha, dim=-1))
-        derr = g[:, None] * alpha
-        return None, None, dd2, derr, dv, dl, dnoise
+        with span("nll.backward"):
+            family = ctx.family
+            d2, err, v, l, nz, W, a = ctx.saved_tensors
+            Wt = W.transpose(-1, -2)
+            Kinv = Wt @ W
+            alpha = (Wt @ a[..., None])[..., 0]
+            dKbar = g[:, None, None] * 0.5 * (
+                Kinv - alpha[:, :, None] * alpha[:, None, :])
+            s = 1.0 / (l * l)
+            u = s[:, None, None] * d2[None]
+            E = _phi(family, u)
+            dphi = _phi_prime(family, u)
+            dv = torch.sum(dKbar * E, dim=(1, 2))
+            darg = v[:, None, None] * dKbar * dphi  # ∂NLL/∂u elementwise
+            ds = torch.sum(darg * d2[None], dim=(1, 2))
+            dl = ds * (-2.0 / (l * l * l))
+            dd2 = (torch.sum(s[:, None, None] * darg, dim=0)
+                   if ctx.needs_input_grad[2] else None)
+            dnoise = g * 0.5 * (torch.diagonal(Kinv, dim1=-2, dim2=-1).sum(-1)
+                                - torch.sum(alpha * alpha, dim=-1))
+            derr = g[:, None] * alpha
+            return None, None, dd2, derr, dv, dl, dnoise
 
 
 def batched_nll_stationary(d2, err, variance, lengthscale, noise, family):

@@ -65,6 +65,16 @@ def frontier_inputs(assets: Sequence[str], data_handler, *, predict_y: str = "re
     return Xs, torch.stack(columns, dim=1), Xs[-1:] + step * horizon_rows
 
 
+def frontier_logdensity(stacked, X, Y):
+    """(C,) log-densities of C stacked ICM models, the frontier's NUTS
+    target: −`icm.batched_neg_log_marginal_likelihood_chol` under a
+    standard-normal prior on the raw parameters, −½‖z‖² of each model's
+    flat raw vector (`params.ravel` order)."""
+    flat = ravel(stacked)
+    return (-icm.batched_neg_log_marginal_likelihood_chol(stacked, X, Y)
+            - 0.5 * torch.sum(flat ** 2, dim=-1))
+
+
 def run_frontier_pipeline(
     assets: Sequence[str],
     data_handler,
@@ -115,9 +125,7 @@ def run_frontier_pipeline(
         from portfoliooptgp_tpu_torch.inference import sample_nuts
 
         def logdensity(m):
-            flat = ravel(m)
-            return (-icm.batched_neg_log_marginal_likelihood_chol(m, Xs, Ymat)
-                    - 0.5 * torch.sum(flat ** 2, dim=-1))
+            return frontier_logdensity(m, Xs, Ymat)
 
         source = (nuts_source if nuts_source is not None
                   else torch.Generator(device=Xs.device).manual_seed(seed))
