@@ -11,12 +11,14 @@ Phases, each fatal on failure:
   2. hold the stationary NLL kernel against its plain PyTorch version on
      the card in float32 — values (rtol 3e-3) and gradients of err, v, ℓ,
      α, noise and the d2 matrices (normalized atol 2e-2), the tolerances of
-     the matching checks in tools/smoke_tpu.py — for the 7 families, prod
-     and sum, an ARD atom, a partial mask, the walk-forward shape and the
-     headline shape; then (2b) at the tile kernel's edges, N in {1, 31, 32,
-     33, 64, 65, 255, 256}, and past it on the cluster kernel, at both
-     sides of every tile count and cluster size it changes at
-     (STATIONARY_CLUSTER_NS, 257 to 512): with and without W, unmasked,
+     the matching checks in tools/smoke_tpu.py; the gradients twice, with
+     the d2 matrices needing a gradient (the torch closed form) and without,
+     as the main path calls it (the backward kernel, one launch) — for the
+     7 families, prod and sum, an ARD atom, a partial mask, the
+     walk-forward shape and the headline shape; then (2b) at the tile
+     kernel's edges, N in {1, 31, 32, 33, 64, 65, 255, 256}, and past it
+     on the cluster kernel, at both sides of every tile count and cluster
+     size it changes at (STATIONARY_CLUSTER_NS, 257 to 512): with and without W, unmasked,
      masked (a mask that empties whole tiles and whole CTAs' rows) and
      indefinite (NaN where the plain version has it), each launch on the
      kernel its N routes to (`phase_stationary_edges`);
@@ -29,12 +31,17 @@ Phases, each fatal on failure:
      (40, 262) and a two-year walk-forward's (5, 480) masked, beside its plain version, the torch.linalg chain and its
      bound, by CUDA-graph replay and eager (`stationary_times`), each
      shape's outputs first held against the plain version on the inputs
-     it is timed on (`check_timed`);
+     it is timed on (`check_timed`); then the backward kernel
+     (`stationary_nll_grad_kernel`) at GRAD_TIMED's shapes (these and the
+     benchmark cells' (2560, 262), (128, 512) and (80, 504) masked): through
+     `_SingleNLL` or `_GeneralNLL`, one launch, against its plain twin on
+     the same W and a (`check_grad`), and timed beside the twin and the
+     torch closed form (`grad_times`);
   4. end to end: the 5-asset portfolio workflow (walk-forward GP fit,
      ARIMA, correlations, 5 strategies, backtest) on the card in float32,
      cold then warm, checked against tests/goldens/portfolio_e2e_goldens.json,
-     with the tile kernel's launches and the CSV files the native loader
-     parsed; then the kernel's times at the walk-forward's (5, 77), masked;
+     with the tile kernel's and the backward kernel's launches and the CSV
+     files the native loader parsed; then the kernel's times at the walk-forward's (5, 77), masked;
   5. hold the blocked tier's panel kernel against its plain version in
      float32: the L panel and Σ log diag at every panel height of N = 875
      (B = 1 and 8), and the blocked NLL's values and gradients at N = 875
@@ -106,7 +113,7 @@ Phases, each fatal on failure:
      (`gpr_logdensity_vg`) on the card against CPU float64 copies at
      tools/smoke_tpu.py's check (C = 8, N = 128, the tile kernel) and at
      bench.py's (8, 512) ARD posterior (one cluster-kernel launch, with W,
-     per evaluation); bench.py's NUTS workload (8 chains, N = 512, dense
+     per evaluation), each with one launch of the backward kernel; bench.py's NUTS workload (8 chains, N = 512, dense
      mass, depth 8, 100 + 200 transitions) cold under the profiler and
      warm, with nuts_draws_per_s, acceptance, leaves per transition,
      launches and host syncs, its posterior held against
@@ -1355,7 +1362,19 @@ def _check_grads(name, got, want):
 
 
 def general_operands(families, dims, B, N, masked, seed):
-    """Random float32 operands for the general NLL on `device`: per-dim
+    """Random float32 operands for the general NLL on the card
+    (`general_operands_np`'s, rounded to float32)."""
+    d2s, err, vs, ls, als, noise, mask = general_operands_np(families, dims, B, N, masked, seed)
+
+    def t(x):
+        return torch.tensor(np.asarray(x), dtype=torch.float32, device=DEVICE)
+
+    return ([t(d) for d in d2s], t(err), [t(v) for v in vs], [t(l) for l in ls],
+            [t(a) for a in als], t(noise), t(mask))
+
+
+def general_operands_np(families, dims, B, N, masked, seed):
+    """Random float64 operands for the general NLL, as numpy arrays: per-dim
     squared distances of sorted inputs (a scaled Gram matrix for 'linear'),
     prefix masks when `masked`."""
     rng = np.random.default_rng(seed)
@@ -1377,53 +1396,68 @@ def general_operands(families, dims, B, N, masked, seed):
             ls[sum(dims[:j])] = np.ones(B)
     als = [rng.uniform(1.0, 3.0, B) for _ in range(J)]
     noise = rng.uniform(0.05, 0.3, B)
-
-    def t(x):
-        return torch.tensor(np.asarray(x), dtype=torch.float32, device=DEVICE)
-
-    return ([t(d) for d in d2s], t(err), [t(v) for v in vs], [t(l) for l in ls],
-            [t(a) for a in als], t(noise), t(mask))
+    return d2s, err, vs, ls, als, noise, mask
 
 
 def check_general(name, families, dims, combine, B, N, masked, seed):
-    """Kernel vs plain, values and gradients of every operand."""
+    """Kernel vs plain, values and gradients of every operand: once with the
+    d2 matrices needing a gradient (the torch closed form's backward) and
+    once without, as the main path calls it (the backward kernel, one
+    launch), its gradients against the plain version's of the same
+    operands."""
     from portfoliooptgp_tpu_torch.ops import stationary_nll as st
 
     d2s, err, vs, ls, als, noise, mask = general_operands(families, dims, B, N, masked, seed)
     fns = {"prod": (st.batched_nll_stationary_general, st.batched_nll_stationary_general_plain),
            "sum": (st.batched_nll_stationary_sum, st.batched_nll_stationary_sum_plain)}[combine]
-    outs = []
-    for fn in fns:
-        leaves = [x.clone().requires_grad_(True) for x in [err, noise] + vs + ls + als + d2s]
+    J, JD = len(vs), len(d2s)
+
+    def run(fn, d2_grad):
+        leaves = [x.clone().requires_grad_(True) for x in [err, noise] + vs + ls + als]
+        d = [x.clone().requires_grad_(d2_grad) for x in d2s]
         e, nz = leaves[:2]
-        J, JD = len(vs), len(d2s)
-        v, l, a, d = (leaves[2:2 + J], leaves[2 + J:2 + J + JD],
-                      leaves[2 + J + JD:2 + 2 * J + JD], leaves[2 + 2 * J + JD:])
+        v, l, a = leaves[2:2 + J], leaves[2 + J:2 + J + JD], leaves[2 + J + JD:]
         nll = fn(families, d, e, v, l, a, nz, mask, dims=dims)
-        outs.append((nll.detach(), torch.autograd.grad(nll.sum(), leaves)))
+        return nll.detach(), torch.autograd.grad(nll.sum(), leaves + (d if d2_grad else []))
+
+    want, got = run(fns[1], True), run(fns[0], True)
+    before = st.kernel_launches()["grad"]
+    fused = run(fns[0], False)
     torch.cuda.synchronize()
-    verr = _check_values(name, outs[0][0], outs[1][0])
-    gerr = _check_grads(name, outs[0][1], outs[1][1])
+    if st.kernel_launches()["grad"] != before + 1:
+        raise AssertionError(f"{name}: the backward kernel did not run once")
+    verr = _check_values(name, got[0], want[0])
+    gerr = max(_check_grads(name, got[1], want[1]),
+               _check_grads(f"{name} (backward kernel)", fused[1], want[1][:len(fused[1])]))
     print(f"check {name}: B={B} N={N} value rel err {verr:.3e}, "
-          f"grad normalized err {gerr:.3e}", flush=True)
-    return _max_err(outs[0][0], outs[1][0])
+          f"grad normalized err {gerr:.3e} (both backwards)", flush=True)
+    return _max_err(got[0], want[0])
 
 
 def check_single(name, family, B, N, seed):
+    """check_general for the single-family path (`batched_nll_stationary`)."""
     from portfoliooptgp_tpu_torch.ops import stationary_nll as st
 
     d2s, err, vs, ls, _, noise, _ = general_operands((family,), (1,), B, N, False, seed)
-    outs = []
-    for fn in (st.batched_nll_stationary, st.batched_nll_stationary_plain):
-        args = [x.clone().requires_grad_(True) for x in (d2s[0], err, vs[0], ls[0], noise)]
-        nll = fn(*args, family)
-        outs.append((nll.detach(), torch.autograd.grad(nll.sum(), args)))
+
+    def run(fn, d2_grad):
+        d2 = d2s[0].clone().requires_grad_(d2_grad)
+        leaves = [x.clone().requires_grad_(True) for x in (err, vs[0], ls[0], noise)]
+        nll = fn(d2, *leaves, family)
+        return nll.detach(), torch.autograd.grad(nll.sum(), leaves + ([d2] if d2_grad else []))
+
+    want, got = run(st.batched_nll_stationary_plain, True), run(st.batched_nll_stationary, True)
+    before = st.kernel_launches()["grad"]
+    fused = run(st.batched_nll_stationary, False)
     torch.cuda.synchronize()
-    verr = _check_values(name, outs[0][0], outs[1][0])
-    gerr = _check_grads(name, outs[0][1], outs[1][1])
+    if st.kernel_launches()["grad"] != before + 1:
+        raise AssertionError(f"{name}: the backward kernel did not run once")
+    verr = _check_values(name, got[0], want[0])
+    gerr = max(_check_grads(name, got[1], want[1]),
+               _check_grads(f"{name} (backward kernel)", fused[1], want[1][:4]))
     print(f"check {name}: B={B} N={N} value rel err {verr:.3e}, "
-          f"grad normalized err {gerr:.3e}", flush=True)
-    return _max_err(outs[0][0], outs[1][0])
+          f"grad normalized err {gerr:.3e} (both backwards)", flush=True)
+    return _max_err(got[0], want[0])
 
 
 # The tile kernel's edges (N = 32 T and one row either side); past them the
@@ -1654,6 +1688,196 @@ def stationary_entry(row, tag):
     return dict(ms=row[f"ms_{tag}"], eager_ms=row[f"eager_ms_{tag}"],
                 plain_ms=row[f"plain_ms_{tag}"], library_ms=row[f"library_ms_{tag}"],
                 bound_ms=row[f"bound_{tag}"][0], bound_by=row[f"bound_{tag}"][1])
+
+
+# -- the stationary NLL backward (stationary_nll_grad_kernel) ---------------
+
+# The shapes the backward kernel is checked and timed at (`check_grad`,
+# `grad_times`): label → (families, dims, combine, B, N, masked). The main
+# path's, the headline's and the cluster kernel's shapes of
+# STATIONARY_TIMED, then the benchmark cells' (gpbench): the ICM model's
+# 2560 single-SE models at N = 262, the NUTS cell's 128 chains of ARD SE
+# over D = 4 at N = 512 and the two-year walk-forward's 80 masked rows.
+GRAD_TIMED = {
+    "walk-forward": (("matern12", "matern12"), (1, 1), "prod", 5, 77, True),
+    "headline": (("se",), (1,), "prod", 128, 256, False),
+    "frontier grid A": (("se",), (1,), "prod", 20, 262, False),
+    "frontier NUTS": (("se",), (1,), "prod", 40, 262, False),
+    "NUTS bench": (("se",), (4,), "prod", 8, 512, False),
+    "ICM cell": (("se",), (1,), "prod", 2560, 262, False),
+    "NUTS cell": (("se",), (4,), "prod", 128, 512, False),
+    "two-year walk-forward cell": (("matern12", "matern12"), (1, 1), "prod", 80, 504, True),
+}
+
+
+def grad_bound_ms(B, N, JD):
+    """Least time for the backward on an H100: the larger of N³/3 operations
+    a model (the triangular product K⁻¹ = WᵀW) over the fp32 peak and W's
+    lower triangle and the shared d2s' read once over HBM bandwidth."""
+    flops = B * N ** 3 / 3
+    nbytes = 4 * (B + JD) * N * (N + 1) / 2
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _grad_operands(st, families, dims, combine, B, N, masked, seed):
+    """general_operands at one GRAD_TIMED shape, stacked as the backward
+    takes them, with W and a from one forward of the kernel: (single, D2,
+    err, V, L, A, noise, mask, W, a). `single` is the single-family path's
+    case (one isotropic family, no mask), whose backward sees α and the
+    mask as None."""
+    d2s, err, vs, ls, als, noise, mask = general_operands(families, dims, B, N, masked, seed)
+    D2, V, L, A = (torch.stack(x) for x in (d2s, vs, ls, als))
+    single = len(families) == 1 and dims == (1,) and not masked
+    if single:
+        A = torch.ones_like(V)
+    with torch.no_grad():
+        _, W, a = st.stationary_nll_forward_cuda(
+            families, combine, dims, D2, err, V, 1.0 / (L * L), A, noise,
+            None if single else mask, True,
+            "stationary_nll" if single else "stationary_nll_general")
+    return single, D2, err, V, L, A, noise, mask, W, a
+
+
+def check_grad(label, seed=41):
+    """The backward kernel at one GRAD_TIMED shape as the main path calls
+    it: value+grad through `batched_nll_stationary` (one unmasked isotropic
+    family: `_SingleNLL`) or `batched_nll_stationary_general`
+    (`_GeneralNLL`), the d2s needing no gradient, one launch of the kernel
+    counted by the wrapper and by the C entry point; its gradients against
+    the plain twin (`stationary_nll_grad_plain`) on the same forward's W and
+    a at phase 2's tolerance. Prints each one's normalized gap, and the
+    float32 torch closed form's, to the float64 closed form on that W and a.
+    Returns the largest absolute error against the twin."""
+    from portfoliooptgp_tpu_torch.ops import stationary_nll as st
+
+    families, dims, combine, B, N, masked = GRAD_TIMED[label]
+    single, D2, err, V, L, A, noise, mask, W, a = _grad_operands(st, families, dims, combine, B,
+                                                                 N, masked, seed)
+    leaves = [x.clone().requires_grad_(True) for x in (err, noise, V, L, A)[:4 if single else 5]]
+    before = st.LAUNCHES["stationary_nll_grad"], st.kernel_launches()["grad"]
+    if single:
+        nll = st.batched_nll_stationary(D2[0], leaves[0], leaves[2][0], leaves[3][0], leaves[1],
+                                        families[0])
+    else:
+        e, nz, v, l, al = leaves
+        nll = st.batched_nll_stationary_general(families, D2, e, list(v), list(l), list(al), nz,
+                                                mask, dims=dims)
+    got = torch.autograd.grad(nll.sum(), leaves)
+    torch.cuda.synchronize()
+    after = st.LAUNCHES["stationary_nll_grad"], st.kernel_launches()["grad"]
+    if after != (before[0] + 1, before[1] + 1):
+        raise AssertionError(f"grad {label}: backward launches {before} -> {after}, not one")
+    g = torch.ones(B, device=DEVICE)
+    with torch.no_grad():
+        dv, dl, dal, dnoise, derr = st.stationary_nll_grad_plain(
+            families, combine, dims, D2, W, a, g, V, L, None if single else A,
+            None if single else mask)
+        want = [derr, dnoise, dv, dl, dal][:4 if single else 5]
+        closed = st.stationary_nll_grad_torch(families, combine, dims, D2, W, a, g, V, L, A, mask,
+                                              False)
+        truth = st.stationary_nll_grad_torch(
+            families, combine, dims, *(x.double() for x in (D2, W, a, g, V, L, A, mask)), False)
+    gerr = _check_grads(f"grad {label}", got, want)
+    gap64 = [max(_max_err(x, t) / max(float(t.abs().max()), 1.0)
+                 for x, t in zip(xs, (truth[1], truth[5], truth[2], truth[3], truth[4])))
+             for xs in (got, [closed[1], closed[5], closed[2], closed[3], closed[4]])]
+    print(f"check grad {label} B={B} N={N} ({'_SingleNLL' if single else '_GeneralNLL'}, one "
+          f"backward kernel launch): against the plain twin, normalized err {gerr:.3e}; to the "
+          f"float64 closed form, kernel {gap64[0]:.3e}, float32 closed form {gap64[1]:.3e}",
+          flush=True)
+    return max(_max_err(x, w) for x, w in zip(got, want))
+
+
+def grad_times(st, families, dims, combine, B, N, masked, seed=41):
+    """The backward's times at one GRAD_TIMED shape on the W and a of one
+    forward of the kernel: the backward kernel (`stationary_nll_grad_cuda`,
+    its two launches), its plain twin and the torch closed form
+    (`stationary_nll_grad_torch`) by CUDA-graph replay (`graph_ms`); the
+    kernel eager (`cuda_ms`); the bound (`grad_bound_ms`). `st` is the
+    port's ops.stationary_nll module: tools/grad_compare.py passes that of
+    another checkout."""
+    single, D2, err, V, L, A, noise, mask, W, a = _grad_operands(st, families, dims, combine, B,
+                                                                 N, masked, seed)
+    g = torch.linspace(-1.0, 1.5, B, device=DEVICE)
+    args = (families, combine, dims, D2, W, a, g, V, L)
+    fused = args + ((None, None) if single else (A, mask))
+    row = {}
+    with torch.no_grad():
+        row["ms"] = graph_ms(lambda: st.stationary_nll_grad_cuda(*fused))
+        row["eager_ms"] = cuda_ms(lambda: st.stationary_nll_grad_cuda(*fused))
+        row["plain_ms"] = graph_ms(lambda: st.stationary_nll_grad_plain(*fused), reps=5)
+        row["library_ms"] = graph_ms(lambda: st.stationary_nll_grad_torch(*args, A, mask, False),
+                                     reps=10)
+    row["bound_ms"], row["bound_by"] = grad_bound_ms(B, N, D2.shape[0])
+    row["units"] = st.grad_units(N)
+    return row
+
+
+def report_grad_times(phase, label, row):
+    families, dims, combine, B, N, masked = GRAD_TIMED[label]
+    print(f"  {phase} backward {label} B={B} N={N} {'*'.join(families)}"
+          f"{'' if dims == (1,) * len(dims) else f' dims {dims}'}{' masked' if masked else ''} "
+          f"(graph replay): kernel {row['ms']:.4f} ms ({row['units']} CTAs a model), plain twin "
+          f"{row['plain_ms']:.4f} ms, torch closed form {row['library_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.6f} ms ({row['bound_by']}); eager {row['eager_ms']:.4f} ms",
+          flush=True)
+
+
+def grad_entry(row):
+    """A grad_times row for the kernels JSON line."""
+    return {k: row[k] for k in ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by")}
+
+
+# The backward held against the JAX package's gradient: label → (families,
+# dims, combine, B, N, masked, single). tests/goldens_torch/stationary_grad.json
+# (tools/make_torch_goldens.py --stationary-grad) holds jax.grad of the JAX
+# package's `batched_nll_stationary` (`single`) or
+# `batched_nll_stationary_{general,sum}` in float64 for GRAD_GOLDEN_MODELS
+# models of each case (`grad_golden_operands`); the card test
+# (tests/test_torch_cuda.py) repeats them to B models.
+GRAD_GOLDEN_MODELS = 4
+GRAD_GOLDEN_CASES = {
+    "ICM cell (2560, 262) single se": (("se",), (1,), "prod", 2560, 262, False, True),
+    "headline (128, 256) single se": (("se",), (1,), "prod", 128, 256, False, True),
+    "NUTS cell (128, 512) ARD se D=4": (("se",), (4,), "prod", 128, 512, False, False),
+    "wf2y cell (80, 504) m12 x m12 masked": (("matern12", "matern12"), (1, 1), "prod", 80, 504,
+                                             True, False),
+    "5-asset (5, 77) m12 x m12 masked": (("matern12", "matern12"), (1, 1), "prod", 5, 77, True,
+                                         False),
+    **{f"grid A (20, 262) single {f}": ((f,), (1,), "prod", 20, 262, False, True)
+       for f in ("matern12", "matern32", "matern52")},
+    **{f"{f} {c} se masked (6, 300)": ((f, "se"), (1, 1), c, 6, 300, True, False)
+       for f in ("se", "matern12", "matern32", "matern52", "rq", "periodic_se", "linear")
+       for c in ("prod", "sum")},
+}
+GRAD_GOLDENS = os.path.join(REPO, "tests", "goldens_torch", "stationary_grad.json")
+
+
+def grad_golden_operands(label):
+    """One GRAD_GOLDEN_CASES case's operands for GRAD_GOLDEN_MODELS models,
+    as float64 numpy arrays holding float32 values (what the card takes,
+    exactly): `general_operands_np`'s (d2s, err, vs, ls, als, noise, mask)
+    and the NLLs' cotangent g."""
+    families, dims, _, _, N, masked, _ = GRAD_GOLDEN_CASES[label]
+    seed = 2600 + list(GRAD_GOLDEN_CASES).index(label)
+    d2s, err, vs, ls, als, noise, mask = general_operands_np(families, dims, GRAD_GOLDEN_MODELS,
+                                                             N, masked, seed)
+
+    def f32(x):
+        return np.asarray(x, np.float32).astype(np.float64)
+
+    return ([f32(d) for d in d2s], f32(err), [f32(v) for v in vs], [f32(x) for x in ls],
+            [f32(x) for x in als], f32(noise), mask,
+            np.linspace(-1.0, 1.5, GRAD_GOLDEN_MODELS))
+
+
+def grad_golden_checksum(operands):
+    """The sum of every entry of grad_golden_operands' arrays: the golden
+    records it, so a numpy whose generator draws other numbers fails loudly."""
+    d2s, err, vs, ls, als, noise, mask, g = operands
+    return float(sum(np.sum(x) for x in [*d2s, err, *vs, *ls, *als, noise, mask, g]))
 
 
 def device_busy(fn, report_name, kernel="stationary_nll"):
@@ -2104,8 +2328,13 @@ def phase_headline():
         errs[name] = max(errs[name], check_timed(label))
         rows[label] = stationary_times(st, families, dims, B, N, masked)
         report_stationary_times("phase 3", label, rows[label])
-    return dict(launches=launches, rows=rows, errs=errs, value_grad_ms=vg_ms,
-                value_grad_device_ms=vg_device["device_ms"])
+    grad_rows, errs["stationary_nll_grad"] = {}, 0.0
+    for label, shape in GRAD_TIMED.items():
+        errs["stationary_nll_grad"] = max(errs["stationary_nll_grad"], check_grad(label))
+        grad_rows[label] = grad_times(st, *shape)
+        report_grad_times("phase 3", label, grad_rows[label])
+    return dict(launches=launches, rows=rows, grad_rows=grad_rows, errs=errs,
+                value_grad_ms=vg_ms, value_grad_device_ms=vg_device["device_ms"])
 
 
 def value_grad_device_ms(value_and_grad, calls=10):
@@ -2150,6 +2379,7 @@ def phase_end_to_end():
         with counting_native_parses() as parses:
             cold, quality = run_workflow(root, DEVICE)
         launches = st.LAUNCHES["stationary_nll_general"]
+        grad_launches = st.LAUNCHES["stationary_nll_grad"]
         ran = launches_since(before)
         stages = {}
         warm, quality_warm = run_workflow(root, DEVICE, timings=stages)
@@ -2157,6 +2387,9 @@ def phase_end_to_end():
     if launches < 1 or ran["tile"] < 1 or ran["cluster"]:
         raise AssertionError(f"the end-to-end run launched {launches} stationary_nll_general "
                              f"kernels ({ran}), not the tile kernel")
+    if grad_launches < 1 or ran["grad"] != grad_launches:
+        raise AssertionError(f"the end-to-end run launched the backward kernel {ran['grad']} "
+                             f"times, its wrapper counted {grad_launches}")
     if parses[0] < 1:
         raise AssertionError("the end-to-end run parsed no CSV through the native loader")
     results = []
@@ -2167,8 +2400,8 @@ def phase_end_to_end():
             raise AssertionError(f"{label} run does not match the goldens: {worst}")
     print(f"phase 4 end to end f32: cold {cold:.2f} s, warm {warm:.2f} s (step 4 "
           f"{stages['step4_s']:.2f} s, portfolio {stages['portfolio_s']:.2f} s), kernel "
-          f"launches {launches} (tile kernel {ran['tile']}, cluster kernel {ran['cluster']}); "
-          f"{parses[0]} CSV files parsed by the native loader; "
+          f"launches {launches} (tile kernel {ran['tile']}, cluster kernel {ran['cluster']}), "
+          f"backward kernel {grad_launches}; {parses[0]} CSV files parsed by the native loader; "
           f"goldens MATCH (worst {results[0]['metric']}: {results[0]['diff']:.4g})", flush=True)
     if busy["device_s"] > 0:
         print(f"  profiled warm pass: {busy['wall_s']:.2f} s wall, device busy "
@@ -2182,7 +2415,7 @@ def phase_end_to_end():
     families, dims, B, N, masked = STATIONARY_TIMED["walk-forward"]
     row = stationary_times(st, families, dims, B, N, masked)
     report_stationary_times("phase 4", "walk-forward", row)
-    return dict(launches=launches, row=row)
+    return dict(launches=launches, grad_launches=grad_launches, row=row)
 
 
 def panel_bound_ms(nt, B=1):
@@ -3565,7 +3798,7 @@ def nuts_vg_check(label, X, Y, stacked, prior_of=None):
     """`gpr_logdensity_vg` on the card in float32 against the same call on
     CPU float64 copies (VALUE_RTOL, GRAD_ATOL normalized); the stationary
     kernel's launches and route per evaluation. Returns (max abs value err,
-    launches, {"tile": n, "cluster": n})."""
+    launches, {"tile": n, "cluster": n, "grad": n})."""
     from portfoliooptgp_tpu_torch.inference import gpr_logdensity_vg
     from portfoliooptgp_tpu_torch.ops import stationary_nll as st
     from portfoliooptgp_tpu_torch.params import tree_leaves, tree_to
@@ -3588,8 +3821,8 @@ def nuts_vg_check(label, X, Y, stacked, prior_of=None):
     verr = _check_values(f"NUTS vg {label}", outs[0][0], outs[1][0])
     gerr = _check_grads(f"NUTS vg {label}", outs[0][1], outs[1][1])
     print(f"check NUTS vg {label}: value rel err {verr:.3e}, grad normalized err {gerr:.3e}; "
-          f"launches {launches}, tile kernel {ran['tile']}, cluster kernel {ran['cluster']}",
-          flush=True)
+          f"launches {launches}, tile kernel {ran['tile']}, cluster kernel {ran['cluster']}, "
+          f"backward kernel {ran['grad']}", flush=True)
     return _max_err(outs[0][0], outs[1][0]), launches, ran
 
 
@@ -3630,8 +3863,9 @@ def phase_nuts():
                        noise_variance=0.1)
     stack = unravel(m, ravel(m) * torch.linspace(0.9, 1.1, 8, dtype=torch.float64)[:, None])
     err, _, ran = nuts_vg_check("C=8 N=128 se", X, Y, stack)
-    if ran["tile"] != 1 or ran["cluster"]:
-        raise AssertionError(f"the C=8 N=128 evaluation ran {ran}, not one tile kernel")
+    if ran != {"tile": 1, "cluster": 0, "grad": 1}:
+        raise AssertionError(f"the C=8 N=128 evaluation ran {ran}, not one tile kernel and one "
+                             "backward kernel")
     Xb, Yb = nuts_bench_data()
     m0 = nuts_bench_model("cpu", torch.float64)
     jitter = 0.1 * np.random.default_rng(1).normal(size=(8, 6))
@@ -3639,9 +3873,10 @@ def phase_nuts():
     err2, launches, ran = nuts_vg_check(
         "bench (8, 512) ARD se D=4", Xb, Yb, stack,
         lambda dev, dt: centered_normal_logprior(nuts_bench_model(dev, dt)))
-    if launches["stationary_nll_general"] != 1 or ran != {"tile": 0, "cluster": 1}:
+    if (launches["stationary_nll_general"] != 1 or launches["stationary_nll_grad"] != 1
+            or ran != {"tile": 0, "cluster": 1, "grad": 1}):
         raise AssertionError(f"a value+grad at (8, 512) launched {launches} ({ran}), not one "
-                             "cluster kernel")
+                             "cluster kernel and one backward kernel")
 
     # (b) bench.py's workload: cold (seed 0, under the profiler) and warm (seed 1)
     with open(NUTS_GOLDENS) as fh:
@@ -4500,7 +4735,7 @@ def main() -> int:
                                          phase_stationary_edges())
     head = phase_headline()
     for name, err in head["errs"].items():
-        errs[name] = max(errs[name], err)
+        errs[name] = max(errs.get(name, 0.0), err)
     e2e = phase_end_to_end()
     errs["blocked_panel"] = phase_blocked_checks()
     sa = phase_single_asset()
@@ -4543,6 +4778,12 @@ def main() -> int:
                 for label, (_, _, B, N, _) in STATIONARY_TIMED.items()
                 if label in ("weekly menu", "monthly menu", "frontier grid A", "frontier NUTS")},
              launches_frontier_nuts=nuts["frontier_launches"]),
+        dict(name="stationary_nll_grad", route="cuda", source=src,
+             replaces="portfoliooptgp_tpu/ops/pallas/stationary_nll.py:509",
+             launches=e2e["grad_launches"], max_abs_err=errs["stationary_nll_grad"],
+             **grad_entry(head["grad_rows"]["walk-forward"]),
+             **{f"at_{B}x{N}": grad_entry(head["grad_rows"][label])
+                for label, (_, _, _, B, N, _) in GRAD_TIMED.items() if label != "walk-forward"}),
         dict(name="blocked_panel", route="cuda",
              source="portfoliooptgp_tpu_torch/csrc/blocked_panel.cu",
              replaces="portfoliooptgp_tpu/ops/pallas/blocked_nll.py:70",

@@ -1,5 +1,6 @@
 // Asynchronous global -> shared copies (cp.async, sm_80 and later) shared by
-// the kernels of csrc/blocked_panel.cu, csrc/trinv.cu and csrc/dense_nll.cu.
+// the kernels of csrc/blocked_panel.cu, csrc/trinv.cu, csrc/dense_nll.cu and
+// the backward of csrc/stationary_nll.cu.
 //
 // The copies are 4 bytes wide on purpose: the kernels may transpose while they
 // stage (a row of the input lands in a column of the shared tile), and their

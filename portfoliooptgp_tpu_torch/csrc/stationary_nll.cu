@@ -85,6 +85,10 @@
 // 256 the cluster's T warp factors, 2 T cluster barriers and the longest
 // column tile of W (T (T - 1) / 2 tile products over its g warps) set the
 // pace.
+//
+// The backward (stationary_nll_grad_alpha, then stationary_nll_grad_kernel;
+// its note is at the kernels) turns the forward's W and a into the
+// hyperparameters' gradients without writing a (B, N, N) tensor.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -92,6 +96,7 @@
 #include <stddef.h>
 
 #include "chol_tile.cuh"
+#include "hopper_async.cuh"
 #include "nll_tile.cuh"
 
 namespace cg = cooperative_groups;
@@ -798,7 +803,532 @@ static cudaError_t launch_cluster(const float* d2s, const float* err, const floa
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-static long long g_launches[2];  // the tile kernel's, the cluster kernel's
+// -- the backward (256 threads at most; N <= 512) ---------------------------
+//
+// The closed-form gradient of the NLL (GPML 5.9) from the forward's W = L^{-1}
+// and a = L^{-1} err, for a cotangent g of the B NLLs, in place of the torch
+// closed form of ops/stationary_nll.py (the JAX package leaves this backward
+// to XLA; no TPU kernel is replaced):
+//   K^{-1} = W^T W,  alpha = W^T a,  T = 1/2 g (m m^T) o (K^{-1} - alpha alpha^T),
+//   dv_j = sum T dK/dv_j,  ds_{j,d} = sum T dK/du_j d2_{j,d},  dalpha_j = sum T dK/dalpha_j,
+//   dnoise = sum_i m_i 1/2 g (K^{-1} - alpha alpha^T)_ii,  derr = g alpha,
+// each sum over the whole (N, N) matrix, for the sum or the product of the
+// atoms (_GeneralNLL.backward; the single-family path is J = 1). Nothing of
+// size (B, N, N) is written: K^{-1} lives in registers, a tile at a time.
+//
+// Two launches. stationary_nll_grad_alpha forms alpha and derr: a CTA a
+// model's 32-column block, 8 warps over the rows k >= the column, a lane a
+// column, the warps' sums added in warp order. stationary_nll_grad_kernel
+// does the rest, one CTA a unit: a model b, a tile row I and a group of G
+// tile columns J (G = 4 from T = 4 tile rows on, fewer below), the
+// lower-triangular tiles (I, J <= I) of K^{-1}. A unit streams W's rows k
+// from 32 I to N (W_{k,i} = 0 for k < i) in 32-row stages through a
+// three-stage cp.async ring: of each row, the group's live columns (below
+// 32 (I + 1)) and, unless tile I is among them, tile I's 32, read from W's
+// lower triangle only (4-byte copies: a row of W at odd N is not 16-byte
+// aligned; the upper triangle and rows past N are zeros written to shared
+// memory). 64 threads a tile, each a 4 x 4 block of K^{-1}_IJ in fp32
+// registers (FFMA; no TF32), accumulate W_{k,I}^T W_{k,J} over the stream.
+// The epilogue runs on those registers: T from alpha and the mask in their
+// place, u_j from the block's d2 entries (shared by the batch, read through
+// L2, the 16 loads of a matrix in flight together), phi, phi' and
+// dphi/dalpha in each family's code (phi_of<F> of the forward and its
+// derivatives), the sum or product rule and the products with d2, each
+// summed over the block into the thread's sums; tiles below the diagonal
+// count twice, diagonal tiles once. The unit's sums go, added in warp
+// order, to its slot of a workspace; an integer arrival ticket picks the
+// model's last CTA, which adds the U slots in unit order and writes dv, dl,
+// dalpha and dnoise (no float atomics: a model's gradient has the same bits
+// in any batch and in every run, since G, U and every order depend on N
+// alone).
+//
+// Measured (graph replay, H100 80GB HBM3 at 700 W): 2.14 ms at (2560, 262)
+// and 0.54 ms at (128, 512), of which the alpha launch 0.15 and 0.035,
+// against 10.8 and 3.8 ms for the torch closed form (tools/grad_compare.py).
+// What holds it back (kernel variants with parts cut out): at (2560, 262)
+// 38,400 short CTAs, 4 stages each on average, pay the latency of their
+// first loads, the ticket and the tail (~0.9 ms with neither product nor
+// epilogue); the product (~0.64 ms, ~50% of the fp32 rate: two 16-byte
+// shared loads a 16 FFMAs) and the epilogue (~0.47 ms) share the rest.
+// A CTA that ran all of a model's units back to back (the ring running on
+// across units) was slower (3.4 ms: its loop state spilled), as were 2 or 4
+// ring stages and groups of 1 or 2 tiles; 16-row stages moved it by 5%.
+//
+// Bound on an H100 (SXM, 700 W): N^3/3 flops a model for W^T W (the
+// epilogue is O(N^2)) and W's lower triangle read once: at (2560, 262) 1.53e10
+// flops, 0.23 ms at 67 TFLOP/s, against 353 MB, 0.105 ms: operations; at
+// (128, 512) 5.7e9 flops, 0.086 ms, against 67 MB: operations. The tiles
+// pad N to 32 T and the diagonal tiles are computed whole (about 1.4x the
+// operations at N = 262, 1.1x at 512).
+
+#define GRAD_BK 32         // rows of W a stage of the ring holds
+#define GRAD_STAGES 3      // stages of the ring
+#define GRAD_MAX_UNITS 40  // a model's units at T = 16, G = 4
+#define GRAD_ALPHA_THREADS 256
+
+// dphi/du of family F at u, phi = phi_of<F>(u, al); mirrors stationary_nll._phi_prime.
+template <int F>
+__device__ __forceinline__ float dphi_of(float u, float al, float phi) {
+  const float SQRT3 = 1.7320508075688772f;
+  const float SQRT5 = 2.23606797749979f;
+  const float PI = 3.141592653589793f;
+  if (F == FAM_SE) return -0.5f * phi;
+  if (F == FAM_RQ) return -0.5f * expf(-(al + 1.0f) * log1pf(u / (2.0f * al)));
+  if (F == FAM_LINEAR) return 1.0f;
+  const float r = sqrtf(fmaxf(u, 1e-20f));
+  if (F == FAM_PERIODIC_SE) {  // the u -> 0 limit below 1e-12
+    const float a2 = al * al;
+    const float grad = -phi * PI * sinf(2.0f * PI * r) / (4.0f * a2 * r);
+    return u > 1e-12f ? grad : -(PI * PI) * phi / (2.0f * a2);
+  }
+  if (F == FAM_MATERN12) return u > 1e-12f ? -expf(-r) / (2.0f * r) : 0.0f;  // 0 on the diagonal
+  if (F == FAM_MATERN32) return -1.5f * expf(-SQRT3 * r);
+  return -(5.0f / 6.0f) * (1.0f + SQRT5 * r) * expf(-SQRT5 * r);
+}
+
+// dphi/dalpha of family F at u (zero for the alpha-free families); mirrors
+// stationary_nll._phi_dalpha.
+template <int F>
+__device__ __forceinline__ float dalpha_of(float u, float al, float phi) {
+  if (F == FAM_RQ) {
+    const float w = u / (2.0f * al);
+    return phi * (w / (1.0f + w) - log1pf(w));
+  }
+  if (F == FAM_PERIODIC_SE) {
+    const float sine = sinf(3.141592653589793f * sqrtf(fmaxf(u, 0.0f)));
+    return phi * sine * sine / (al * al * al);
+  }
+  return 0.0f;
+}
+
+__host__ __device__ __forceinline__ bool has_alpha(int family) {
+  return family == FAM_RQ || family == FAM_PERIODIC_SE;
+}
+
+// phi of family F at the 4 entries of a row of a thread's block and, with
+// D, phi' and dphi/dalpha.
+template <int F, bool D>
+__device__ __forceinline__ void family4(const float (&u)[4], float al, float (&p)[4],
+                                        float (&dp)[4], float (&da)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    p[e] = phi_of<F>(u[e], al);
+    if (D) dp[e] = dphi_of<F>(u[e], al, p[e]), da[e] = dalpha_of<F>(u[e], al, p[e]);
+  }
+}
+
+// family4 with the family chosen at run time (the same in every thread).
+template <bool D>
+__device__ __forceinline__ void atom4(int fam, const float (&u)[4], float al, float (&p)[4],
+                                      float (&dp)[4], float (&da)[4]) {
+  switch (fam) {
+    case FAM_SE: family4<FAM_SE, D>(u, al, p, dp, da); break;
+    case FAM_MATERN12: family4<FAM_MATERN12, D>(u, al, p, dp, da); break;
+    case FAM_MATERN32: family4<FAM_MATERN32, D>(u, al, p, dp, da); break;
+    case FAM_MATERN52: family4<FAM_MATERN52, D>(u, al, p, dp, da); break;
+    case FAM_RQ: family4<FAM_RQ, D>(u, al, p, dp, da); break;
+    case FAM_PERIODIC_SE: family4<FAM_PERIODIC_SE, D>(u, al, p, dp, da); break;
+    default: family4<FAM_LINEAR, D>(u, al, p, dp, da); break;
+  }
+}
+
+// The 16 entries (i0 + t / 4, j0 + t % 4) of an N x N matrix M whose bits
+// in okm are set (zeros elsewhere), their loads in flight together.
+__device__ __forceinline__ void load16(float (&x)[16], const float* __restrict__ M, int i0,
+                                       int j0, int N, unsigned okm) {
+#pragma unroll
+  for (int t = 0; t < 16; ++t)
+    x[t] = (okm >> t) & 1u ? __ldg(M + (size_t)(i0 + (t >> 2)) * N + j0 + (t & 3)) : 0.0f;
+}
+
+// u = sum_d s_d d2_{off + d} at those entries.
+__device__ __forceinline__ void arg16(float (&u)[16], const float* __restrict__ d2s, size_t NN,
+                                      int i0, int j0, int N, unsigned okm, const float* sv,
+                                      int off, int dq) {
+#pragma unroll
+  for (int t = 0; t < 16; ++t) u[t] = 0.0f;
+  for (int d = 0; d < dq; ++d) {
+    float x[16];
+    load16(x, d2s + (size_t)(off + d) * NN, i0, j0, N, okm);
+    const float s = sv[off + d];
+#pragma unroll
+    for (int t = 0; t < 16; ++t) u[t] += s * x[t];
+  }
+}
+
+// A model's units: (tile row, group of G tile columns), heaviest first.
+struct GradUnits {
+  int U, G;
+  unsigned char row[GRAD_MAX_UNITS], grp[GRAD_MAX_UNITS];
+};
+
+// The backward kernel's shared memory in floats: the ring (GRAD_STAGES
+// stages of GRAD_BK rows of SP + SP G columns), which then holds the threads' sums
+// (NQ x nt); alpha and the mask on the unit's rows and columns; the
+// model's s, v, alpha and product of the v's; the atoms' families, d2
+// counts and offsets and a flag (ints); the warps' sums and the totals.
+struct GradLayout {
+  int vec, prm, meta, red, total;
+};
+
+__host__ __device__ __forceinline__ GradLayout grad_layout(int G, int NQ, int nt) {
+  const int ring = GRAD_STAGES * GRAD_BK * SP * (1 + G), sums = NQ * nt;
+  GradLayout l;
+  l.vec = ring > sums ? ring : sums;
+  l.prm = l.vec + 2 * SP * (1 + G);
+  l.meta = l.prm + MAX_MATS + 2 * MAX_ATOMS + 1;
+  l.red = l.meta + 3 * MAX_ATOMS + 1;
+  l.total = l.red + NQ * (nt / 32) + NQ;
+  return l;
+}
+
+__global__ void __launch_bounds__(GRAD_ALPHA_THREADS) stationary_nll_grad_alpha(
+    const float* __restrict__ W,  // (B, N, N), lower triangular
+    const float* __restrict__ a,  // (B, N)
+    const float* __restrict__ g,  // (B,)
+    float* __restrict__ alpha,    // (B, N): W^T a
+    float* __restrict__ derr,     // (B, N): g alpha
+    int N) {
+  __shared__ float red[GRAD_ALPHA_THREADS / 32][33];
+  const int T = (N + SP - 1) / SP, b = blockIdx.x / T, Jc = blockIdx.x % T;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, c = SP * Jc + lane;
+  const float* Wb = W + (size_t)b * N * N;
+  const float* ab = a + (size_t)b * N;
+  float s = 0.0f;
+  if (c < N) {
+    for (int k = SP * Jc + warp; k < N; k += 4 * (GRAD_ALPHA_THREADS / 32)) {
+      float w[4], x[4];  // four rows' loads in flight
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int kq = k + q * (GRAD_ALPHA_THREADS / 32);
+        const bool ok = kq < N && c <= kq;
+        w[q] = ok ? __ldg(Wb + (size_t)kq * N + c) : 0.0f;
+        x[q] = ok ? __ldg(ab + kq) : 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) s = fmaf(w[q], x[q], s);
+    }
+  }
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && c < N) {
+    float t = 0.0f;
+#pragma unroll
+    for (int w = 0; w < GRAD_ALPHA_THREADS / 32; ++w) t += red[w][lane];
+    alpha[(size_t)b * N + c] = t;
+    derr[(size_t)b * N + c] = g[b] * t;
+  }
+}
+
+__global__ void __launch_bounds__(256, 3) stationary_nll_grad_kernel(
+    const float* __restrict__ d2s,    // (JD, N, N)
+    const float* __restrict__ W,      // (B, N, N), lower triangular
+    const float* __restrict__ alpha,  // (B, N), from stationary_nll_grad_alpha
+    const float* __restrict__ g,      // (B,)
+    const float* __restrict__ mask,   // (B, N) or null for all ones
+    const float* __restrict__ vs,     // (J, B)
+    const float* __restrict__ ls,     // (JD, B), s = 1/l^2
+    const float* __restrict__ als,    // (J, B) or null for all ones
+    float* __restrict__ part,         // (B, U, NQ): the units' sums
+    unsigned* __restrict__ tickets,   // (B,): zeros, left zero
+    float* __restrict__ dv,           // (J, B)
+    float* __restrict__ dl,           // (JD, B)
+    float* __restrict__ dal,          // (J, B)
+    float* __restrict__ dnoise,       // (B,)
+    int B, int N, Atoms atoms, GradUnits units) {
+  extern __shared__ __align__(16) float smem[];
+  const int nt = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int U = units.U, G = units.G, wb = SP * G;
+  const int b = blockIdx.x / U, u = blockIdx.x % U;
+  int I = 0, Jg = 0;  // units.row[u], units.grp[u] by constant indices (no local copy)
+#pragma unroll
+  for (int x = 0; x < GRAD_MAX_UNITS; ++x)
+    if (x == u) I = units.row[x], Jg = units.grp[x];
+  const int J = atoms.J, prod = atoms.combine;
+  int JD = 0;
+#pragma unroll
+  for (int q = 0; q < MAX_ATOMS; ++q) JD += q < J ? atoms.dims[q] : 0;
+  const int NQ = 2 * J + JD + 1;  // dv (the product: one sum), ds, dalpha, dnoise
+  const GradLayout ly = grad_layout(G, NQ, nt);
+  float* ring = smem;
+  float* vec = smem + ly.vec;  // alpha, m on rows 32 I + x; alpha, m on columns wb Jg + x
+  float* sv = smem + ly.prm;   // s (MAX_MATS), v, alpha (MAX_ATOMS each), P = prod v
+  float* vv = sv + MAX_MATS;
+  float* av = vv + MAX_ATOMS;
+  int* fams = reinterpret_cast<int*>(smem + ly.meta);  // families, d2 counts, offsets, flag
+  int* dms = fams + MAX_ATOMS;
+  int* offs = dms + MAX_ATOMS;
+  float* red = smem + ly.red;
+
+  // model b's parameters and the atoms (by constant indices), alpha and the
+  // mask on the unit's rows and columns (zeros past N)
+  {
+    int off = 0;
+#pragma unroll
+    for (int q = 0; q < MAX_ATOMS; ++q) {
+      if (tid == q) fams[q] = atoms.family[q], dms[q] = atoms.dims[q], offs[q] = off;
+      off += q < J ? atoms.dims[q] : 0;
+    }
+  }
+  if (tid < JD) {
+    const float l = ls[(size_t)tid * B + b];
+    sv[tid] = 1.0f / (l * l);
+  }
+  if (tid < J) {
+    vv[tid] = vs[(size_t)tid * B + b];
+    av[tid] = als ? als[(size_t)tid * B + b] : 1.0f;
+  }
+  if (tid == 0) {
+    float P = 1.0f;
+    for (int q = 0; q < J; ++q) P *= vs[(size_t)q * B + b];
+    av[MAX_ATOMS] = P;
+  }
+  for (int x = tid; x < SP + wb; x += nt) {
+    const int i = x < SP ? SP * I + x : wb * Jg + x - SP;
+    float* dst = x < SP ? vec + x : vec + 2 * SP + (x - SP);
+    const bool in = i < N;
+    dst[0] = in ? alpha[(size_t)b * N + i] : 0.0f;
+    dst[x < SP ? SP : wb] = in ? (mask ? mask[(size_t)b * N + i] : 1.0f) : 0.0f;
+  }
+
+  // K^{-1} on tiles (I, G Jg + t), t < G: warps 2 t and 2 t + 1, rows 16 h
+  // + 4 tr .. + 3 of the tile and columns 4 tc .. + 3, for h = warp % 2,
+  // (tr, tc) = (lane / 8, lane % 8).
+  const int t = warp >> 1, r0 = 16 * (warp & 1) + 4 * (lane >> 3), c0 = SP * t + 4 * (lane & 7);
+  const int Jt = G * Jg + t;
+  const bool live = Jt <= I;
+  const float* Wb = W + (size_t)b * N * N;
+  const int k0 = SP * I, stages = (N - k0 + GRAD_BK - 1) / GRAD_BK;
+  const int stage = GRAD_BK * (SP + wb);
+  // A thread's copies of a stage: of the group's live columns (below
+  // 32 (I + 1)), column tid % wb in rows tid / wb + 2 p; and, unless tile I
+  // is in the group (a diagonal unit, which reads it there), of tile I's 32
+  // columns, column tid % 32 in rows tid / 32 + 2 G p
+  const bool diag = I < G * (Jg + 1);
+  const int cA = k0 + (tid & 31), rA = tid >> 5, cB = wb * Jg + tid % wb, rB = tid / wb;
+  const int lda = diag ? wb : SP, offA = diag ? GRAD_BK * SP + SP * (I - G * Jg) : 0;
+  auto fill = [&](float* dst, int kb) {
+    for (int r = rA; !diag && r < GRAD_BK; r += 2 * G) {
+      const int k = kb + r;
+      float* d = dst + r * SP + (tid & 31);
+      if (k < N && cA <= k)
+        cp_async_f32(d, Wb + (size_t)k * N + cA);
+      else
+        *d = 0.0f;
+    }
+    if (cB >= SP * (I + 1)) return;
+    float* dB = dst + GRAD_BK * SP + cB - wb * Jg;
+#pragma unroll 4
+    for (int r = rB; r < GRAD_BK; r += 2) {
+      const int k = kb + r;
+      if (k < N && cB <= k)
+        cp_async_f32(dB + r * wb, Wb + (size_t)k * N + cB);
+      else
+        dB[r * wb] = 0.0f;
+    }
+  };
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[r][e] = 0.0f;
+#pragma unroll
+  for (int p = 0; p < GRAD_STAGES - 1; ++p) {
+    if (p < stages) fill(ring + p * stage, k0 + p * GRAD_BK);
+    cp_async_commit();
+  }
+  for (int s = 0; s < stages; ++s) {
+    const int next = s + GRAD_STAGES - 1;
+    if (next < stages) fill(ring + (next % GRAD_STAGES) * stage, k0 + next * GRAD_BK);
+    cp_async_commit();  // (empty past the last stage)
+    cp_async_wait<GRAD_STAGES - 1>();
+    __syncthreads();
+    if (live) {
+      const float* As = ring + (s % GRAD_STAGES) * stage + offA;
+      const float* Bs = ring + (s % GRAD_STAGES) * stage + GRAD_BK * SP;
+#pragma unroll 8
+      for (int kk = 0; kk < GRAD_BK; ++kk) {
+        const float4 x = *reinterpret_cast<const float4*>(As + kk * lda + r0);
+        const float4 y = *reinterpret_cast<const float4*>(Bs + kk * wb + c0);
+        const float xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[r][e] = fmaf(xs[r], ys[e], acc[r][e]);
+      }
+    }
+    __syncthreads();  // the stage is read before it is filled again
+  }
+  cp_async_wait<0>();
+
+  // The epilogue on the thread's 4 x 4 block: T in acc's place, then each
+  // atom's terms, the block's sum of each added to the thread's slot once
+  float* sums = ring;
+  for (int q = 0; q < NQ; ++q) sums[q * nt + tid] = 0.0f;
+  if (live) {
+    const size_t NN = (size_t)N * N;
+    const float wgt = Jt == I ? 1.0f : 2.0f;
+    const float* ca = vec + 2 * SP;
+    const float* cm = ca + wb;
+    const int i0 = SP * I + r0, j0 = wb * Jg + c0;
+    unsigned okm = 0;  // bit 4 r + e: entry (i0 + r, j0 + e) lies inside the matrix
+    float dn = 0.0f;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float ai = vec[r0 + r], mi = vec[SP + r0 + r];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = i0 + r < N && j0 + e < N;
+        okm |= ok ? 1u << (4 * r + e) : 0u;
+        if (ok && i0 + r == j0 + e) dn += mi * (acc[r][e] - ai * ai);
+        acc[r][e] = wgt * (mi * cm[c0 + e]) * (acc[r][e] - ai * ca[c0 + e]);
+      }
+    }
+    sums[(NQ - 1) * nt + tid] = dn;
+    for (int q = 0; q < J; ++q) {
+      float u[16], x[16];  // u_q, then x phi'_q; x = T prod_{k != q} phi_k (the sum: T)
+      arg16(u, d2s, NN, i0, j0, N, okm, sv, offs[q], dms[q]);
+#pragma unroll
+      for (int t = 0; t < 16; ++t) x[t] = acc[t >> 2][t & 3];
+      for (int k = 0; prod && k < J; ++k) {
+        if (k == q) continue;
+        float w[16];
+        arg16(w, d2s, NN, i0, j0, N, okm, sv, offs[k], dms[k]);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float wc[4] = {w[4 * c], w[4 * c + 1], w[4 * c + 2], w[4 * c + 3]}, pk[4], n0[4], n1[4];
+          atom4<false>(fams[k], wc, av[k], pk, n0, n1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) x[4 * c + e] *= pk[e];
+        }
+      }
+      float sp = 0.0f, sa = 0.0f;  // sum x phi, sum x dphi/dalpha
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float uc[4] = {u[4 * c], u[4 * c + 1], u[4 * c + 2], u[4 * c + 3]}, p[4], dp[4], da[4];
+        atom4<true>(fams[q], uc, av[q], p, dp, da);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = 4 * c + e;
+          const bool ok = (okm >> t) & 1u;
+          sp += ok ? x[t] * p[e] : 0.0f;
+          sa += ok ? x[t] * da[e] : 0.0f;
+          u[t] = ok ? x[t] * dp[e] : 0.0f;
+        }
+      }
+      if (!prod || q == 0) sums[(prod ? 0 : q) * nt + tid] += sp;  // the product's one sum
+      if (has_alpha(fams[q])) sums[(J + JD + q) * nt + tid] += sa;
+      for (int d = 0; d < dms[q]; ++d) {
+        float y[16];
+        load16(y, d2s + (size_t)(offs[q] + d) * NN, i0, j0, N, okm);
+        float sd = 0.0f;
+#pragma unroll
+        for (int t = 0; t < 16; ++t) sd += u[t] * y[t];
+        sums[(J + offs[q] + d) * nt + tid] += sd;
+      }
+    }
+  }
+
+  // The unit's sums, added in warp order, to its slot; the model's last CTA
+  // adds the slots in unit order and writes the gradients.
+  const int nw = nt >> 5;
+  for (int q = 0; q < NQ; ++q) {
+    float v = sums[q * nt + tid];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+    if (lane == 0) red[q * nw + warp] = v;
+  }
+  __syncthreads();
+  float* slot = part + ((size_t)b * U + u) * NQ;
+  for (int q = tid; q < NQ; q += nt) {
+    float v = 0.0f;
+    for (int w = 0; w < nw; ++w) v += red[q * nw + w];
+    slot[q] = v;
+  }
+  int* flag = offs + MAX_ATOMS;
+  __threadfence();  // the slot is visible before the ticket is
+  __syncthreads();
+  if (tid == 0) *flag = atomicAdd(tickets + b, 1u) == (unsigned)(U - 1);
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  float* tot = red + NQ * nw;
+  for (int q = tid; q < NQ; q += nt) {
+    float v = 0.0f;
+    for (int x = 0; x < U; ++x) v += __ldcg(part + ((size_t)b * U + x) * NQ + q);
+    tot[q] = v;
+  }
+  __syncthreads();
+  const float c = 0.5f * g[b];
+  if (tid < J) {
+    const int q = tid;
+    const float P = av[MAX_ATOMS], vq = vv[q], scale = prod ? P : vq;
+    dv[(size_t)q * B + b] = prod ? c * tot[0] * (P / vq) : c * tot[q];
+    for (int d = 0; d < dms[q]; ++d) {
+      const int k = offs[q] + d;
+      const float l = ls[(size_t)k * B + b];
+      dl[(size_t)k * B + b] = c * scale * tot[J + k] * (-2.0f / (l * l * l));
+    }
+    dal[(size_t)q * B + b] = has_alpha(fams[q]) ? c * scale * tot[J + JD + q] : 0.0f;
+  }
+  if (tid == 0) {
+    dnoise[b] = c * tot[NQ - 1];
+    tickets[b] = 0u;
+  }
+}
+
+// The backward's units at N: G tile columns a unit (4 from T = 4 on, else
+// 2 or 1), every (tile row I, group Jg with G Jg <= I), ordered by their
+// work (tiles times rows streamed), heaviest first, ties in (I, Jg) order.
+// They depend on N alone.
+static GradUnits grad_units(int N) {
+  const int T = (N + SP - 1) / SP;
+  GradUnits un;
+  un.G = T >= 4 ? 4 : (T >= 2 ? 2 : 1);
+  un.U = 0;
+  int work[GRAD_MAX_UNITS];
+  for (int I = 0; I < T; ++I) {
+    for (int Jg = 0; un.G * Jg <= I; ++Jg) {
+      const int tiles = I + 1 - un.G * Jg < un.G ? I + 1 - un.G * Jg : un.G;
+      const int w = tiles * (N - SP * I);
+      int x = un.U++;
+      for (; x > 0 && work[x - 1] < w; --x) {
+        work[x] = work[x - 1];
+        un.row[x] = un.row[x - 1];
+        un.grp[x] = un.grp[x - 1];
+      }
+      work[x] = w;
+      un.row[x] = (unsigned char)I;
+      un.grp[x] = (unsigned char)Jg;
+    }
+  }
+  return un;
+}
+
+static cudaError_t launch_grad(const float* d2s, const float* W, const float* a, const float* g,
+                               const float* mask, const float* vs, const float* ls,
+                               const float* als, float* alpha, float* part, unsigned* tickets,
+                               float* dv, float* dl, float* dal, float* dnoise, float* derr,
+                               int B, int N, const Atoms& atoms, int JD, cudaStream_t stream) {
+  static size_t allowed = 48 * 1024;  // dynamic shared bytes the kernel may ask for
+  const GradUnits un = grad_units(N);
+  const int nt = 2 * SP * un.G, NQ = 2 * atoms.J + JD + 1, T = (N + SP - 1) / SP;
+  const size_t bytes = (size_t)grad_layout(un.G, NQ, nt).total * sizeof(float);
+  if (bytes > allowed) {
+    cudaError_t e = cudaFuncSetAttribute(stationary_nll_grad_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return e;
+    allowed = bytes;
+  }
+  stationary_nll_grad_alpha<<<B * T, GRAD_ALPHA_THREADS, 0, stream>>>(W, a, g, alpha, derr, N);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  stationary_nll_grad_kernel<<<B * un.U, nt, bytes, stream>>>(
+      d2s, W, alpha, g, mask, vs, ls, als, part, tickets, dv, dl, dal, dnoise, B, N, atoms, un);
+  return cudaGetLastError();
+}
+
+static long long g_launches[3];  // the tile kernel's, the cluster kernel's, the backward's
 
 // Plain C entry point: every pointer is a device pointer except `families`
 // and `dims` (host arrays of J ints). N <= 256 runs the tile kernel,
@@ -839,11 +1369,50 @@ extern "C" int stationary_nll_launch(const float* d2s, const float* err,
   return (int)e;
 }
 
+// The backward: dv (J, B), dl (JD, B), dal (J, B), dnoise (B,) and derr
+// (B, N) for the cotangent g (B,) from the forward's W (B, N, N) and a
+// (B, N), on the operands of stationary_nll_launch with ls = l (not s)
+// and als null for all ones. Scratch: alpha (B, N), part (B, U, NQ) with
+// U = stationary_nll_grad_units(N) and NQ = 2 J + sum(dims) + 1, tickets
+// (B,) zeros, left zero. Two launches on `stream`; counted once.
+extern "C" int stationary_nll_grad_launch(const float* d2s, const float* W, const float* a,
+                                          const float* g, const float* mask, const float* vs,
+                                          const float* ls, const float* als, float* alpha,
+                                          float* part, unsigned* tickets, float* dv, float* dl,
+                                          float* dal, float* dnoise, float* derr, int B, int N,
+                                          int J, const int* families, const int* dims,
+                                          int combine, void* stream) {
+  if (B <= 0 || N <= 0) return (int)cudaSuccess;
+  if (N > MAX_N || J < 1 || J > MAX_ATOMS) return (int)cudaErrorInvalidValue;
+  Atoms atoms;
+  atoms.J = J;
+  atoms.combine = combine;
+  int jd = 0;
+  for (int q = 0; q < MAX_ATOMS; ++q) {
+    atoms.family[q] = q < J ? families[q] : 0;
+    atoms.dims[q] = q < J ? dims[q] : 0;
+    if (q < J && dims[q] < 1) return (int)cudaErrorInvalidValue;
+    jd += atoms.dims[q];
+  }
+  if (jd > MAX_MATS) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = launch_grad(d2s, W, a, g, mask, vs, ls, als, alpha, part, tickets, dv, dl,
+                                    dal, dnoise, derr, B, N, atoms, jd, (cudaStream_t)stream);
+  if (e == cudaSuccess) ++g_launches[2];
+  return (int)e;
+}
+
+// The backward's units a model at N (its workspace's U), or -1 outside the
+// window.
+extern "C" int stationary_nll_grad_units(int N) {
+  return N <= 0 || N > MAX_N ? -1 : grad_units(N).U;
+}
+
 // Launches since the library was loaded: out[0] of the tile kernel, out[1]
-// of the cluster kernel.
+// of the cluster kernel, out[2] of the backward (its two kernels once).
 extern "C" void stationary_nll_kernel_launches(long long* out) {
   out[0] = g_launches[0];
   out[1] = g_launches[1];
+  out[2] = g_launches[2];
 }
 
 // CTAs of the kernel that runs at this N resident on one SM at once

@@ -115,3 +115,21 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
         lib = _LIBS[name] = ctypes.CDLL(path)
     return lib
+
+
+# The arrival tickets of the kernels' last-CTA reductions (csrc/svgp_gram.cu,
+# the stationary NLL backward): int32 zeros, which every launch leaves zero.
+# One buffer per device and stream, shared by the kernels, since launches on
+# one stream never overlap.
+_TICKETS: dict = {}
+
+
+def tickets(device, stream, n: int):
+    """At least n zeroed int32 arrival tickets for a launch on `stream`."""
+    import torch
+
+    buf = _TICKETS.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = _TICKETS[(device, stream)] = torch.zeros((max(n, 4096),), dtype=torch.int32,
+                                                       device=device)
+    return buf

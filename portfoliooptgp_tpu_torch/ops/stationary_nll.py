@@ -9,10 +9,20 @@ forward (factor, a = L⁻¹ err, Σ log diag L and, for the gradient,
 W = L⁻¹) is the hand-written kernel `csrc/stationary_nll.cu` on CUDA
 tensors and its plain PyTorch version (`stationary_nll_forward_plain`) on
 CPU tensors; a CUDA tensor never takes the plain path. The backward is the
-closed-form GPML 5.9 gradient, a line-for-line port of `_stg_bwd` and
-`_st_bwd`, in torch.matmul (the JAX package leaves it to XLA):
+closed-form GPML 5.9 gradient (the JAX package's `_stg_bwd` and `_st_bwd`,
+left to XLA there):
 
     Kinv = WᵀW,  α = Wᵀa,  dK̄ = ½ g (Kinv − ααᵀ)
+
+On CUDA tensors it is the hand-written backward of the same source
+(`stationary_nll_grad_cuda`: K⁻¹ formed tile by tile in registers and
+reduced straight into the hyperparameters' gradients, span
+`nll.grad_kernel`); `stationary_nll_grad_plain` is its plain twin, tile for
+tile, which chip_smoke.py and the card tests hold it against. CPU tensors,
+the plain forward's oracle calls and calls whose d2s need a gradient (the
+kernel forms no dd2) take `stationary_nll_grad_torch`, the line-for-line
+port of `_stg_bwd` in torch.matmul; the single-family path (`_st_bwd`)
+takes it with J = 1.
 
 NLLs carry the 2π constant at the full N; callers restate it for the rows
 a mask keeps. The mask cotangent is zero. The forward runs without W when
@@ -20,13 +30,14 @@ no input needs a gradient (the L-BFGS line-search trials) and with W when
 one does (one gradient per iteration).
 
 `LAUNCHES` counts kernel launches per wrapper: "stationary_nll_general"
-for the masked sum/product path (`_stg_kernel`'s role) and
-"stationary_nll" for the single-family path (`_st_kernel`/`_st_inv_kernel`).
-The source holds two kernels, chosen by N: the tile kernel for N ≤ 256
+for the masked sum/product path (`_stg_kernel`'s role),
+"stationary_nll" for the single-family path (`_st_kernel`/`_st_inv_kernel`)
+and "stationary_nll_grad" for the backward, either path. The source holds
+two forward kernels, chosen by N: the tile kernel for N ≤ 256
 (`MAX_TILE_N`) and the cluster kernel (a thread-block cluster of 2, 4 or 8
 CTAs per model) up to `MAX_FUSED_N`; larger N is refused.
-`kernel_launches()` reads how often each was launched, as the C entry point
-counts them.
+`kernel_launches()` reads how often each, and the backward, was launched,
+as the C entry point counts them.
 """
 
 from __future__ import annotations
@@ -36,7 +47,7 @@ import math
 
 import torch
 
-from portfoliooptgp_tpu_torch.ops import linalg
+from portfoliooptgp_tpu_torch.ops import cuda_build, linalg
 from portfoliooptgp_tpu_torch.utils.profiling import span
 
 LOG2PI = 1.8378770664093453
@@ -56,7 +67,11 @@ FAMILIES = ("se", "matern12", "matern32", "matern52")
 GENERAL_FAMILIES = FAMILIES + ("rq", "periodic_se", "linear")
 _FAMILY_CODE = {f: i for i, f in enumerate(GENERAL_FAMILIES)}
 
-LAUNCHES = {"stationary_nll_general": 0, "stationary_nll": 0}
+LAUNCHES = {"stationary_nll_general": 0, "stationary_nll": 0, "stationary_nll_grad": 0}
+
+# The backward's tile width (csrc/stationary_nll.cu: SP), which
+# `stationary_nll_grad_plain` walks too.
+GRAD_TILE = 32
 
 
 def fused_nll_supported(n: int) -> bool:
@@ -178,8 +193,6 @@ _LIB = None
 def _lib():
     global _LIB
     if _LIB is None:
-        from portfoliooptgp_tpu_torch.ops import cuda_build
-
         lib = cuda_build.load("stationary_nll")
         lib.stationary_nll_launch.restype = ctypes.c_int
         lib.stationary_nll_launch.argtypes = (
@@ -191,17 +204,24 @@ def _lib():
         lib.stationary_nll_kernel_launches.argtypes = [ctypes.c_void_p]
         lib.stationary_nll_ctas_per_sm.restype = ctypes.c_int
         lib.stationary_nll_ctas_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.stationary_nll_grad_launch.restype = ctypes.c_int
+        lib.stationary_nll_grad_launch.argtypes = (
+            [ctypes.c_void_p] * 16 + [ctypes.c_int] * 3
+            + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+        lib.stationary_nll_grad_units.restype = ctypes.c_int
+        lib.stationary_nll_grad_units.argtypes = [ctypes.c_int]
         _LIB = lib
     return _LIB
 
 
 def kernel_launches() -> dict:
-    """{"tile": n, "cluster": n}: launches of the tile kernel (N ≤ 256) and
-    of the cluster kernel since the library was loaded, counted by the C
-    entry point where it launches each. Loads (and builds) the library."""
-    out = (ctypes.c_longlong * 2)()
+    """{"tile": n, "cluster": n, "grad": n}: launches of the tile kernel
+    (N ≤ 256), of the cluster kernel and of the backward since the library
+    was loaded, counted by the C entry points where they launch. Loads (and
+    builds) the library."""
+    out = (ctypes.c_longlong * 3)()
     _lib().stationary_nll_kernel_launches(out)
-    return {"tile": out[0], "cluster": out[1]}
+    return {"tile": out[0], "cluster": out[1], "grad": out[2]}
 
 
 def ctas_per_sm(n: int, with_inverse: bool) -> int:
@@ -278,6 +298,209 @@ def stationary_nll_forward(families, combine, dims, d2s, err, vs, ss, als,
     raise ValueError(f"unsupported device {err.device}")
 
 
+# -- backward: the kernel's wrapper and its plain twin ----------------------
+
+def _offsets(dims):
+    """Each atom's first index into the flat, atom-major d2s/ls stacks."""
+    offs, o = [], 0
+    for dj in dims:
+        offs.append(o)
+        o += dj
+    return offs
+
+
+def stationary_nll_grad_plain(families, combine, dims, d2s, W, a, g, vs, ls, als,
+                              mask):
+    """Plain PyTorch twin of the backward kernel: (dv (J, B), dl (JD, B),
+    dal (J, B), dnoise (B,), derr (B, N)) for the cotangent g (B,) of the
+    NLLs, from the forward's W (B, N, N) and a (B, N), on the forward's
+    operands with the lengthscales ls (JD, B); als or mask None for all
+    ones. The kernel's algorithm: α = Wᵀa from W's lower triangle, then
+    the lower-triangular GRAD_TILE-wide tile pairs (I, J ≤ I) of K⁻¹ = WᵀW,
+    row by row, each from the rows k ≥ GRAD_TILE·I, its epilogue (the sum
+    or product rule, φ's derivatives, the products with d2) summed with
+    the tiles below the diagonal counted twice, and the sums scaled last."""
+    B, N = a.shape
+    J, JD = len(families), sum(dims)
+    offs = _offsets(dims)
+    prod = combine == "prod"
+    ss = 1.0 / (ls * ls)
+    m = torch.ones_like(a) if mask is None else mask
+    abc = [x[:, None, None] for x in (torch.ones_like(vs) if als is None else als)]
+    Wl = torch.tril(W)
+    alpha = (Wl.transpose(-1, -2) @ a[..., None])[..., 0]
+    zero = a.new_zeros((B,))
+    sv = [zero] * J   # Σ T φ_j; the product: [0] Σ T Π φ
+    sd = [zero] * JD  # Σ (∂K/∂u_j ÷ the atom's scale) T d2_k
+    sa = [zero] * J   # Σ (∂K/∂α_j ÷ the atom's scale) T
+    sn = zero         # Σ m_i (K⁻¹ − ααᵀ)_ii
+    for I in range(-(-N // GRAD_TILE)):
+        rows = slice(GRAD_TILE * I, min(GRAD_TILE * (I + 1), N))
+        ks = slice(GRAD_TILE * I, N)
+        for Jt in range(I + 1):
+            cols = slice(GRAD_TILE * Jt, min(GRAD_TILE * (Jt + 1), N))
+            K = Wl[:, ks, rows].transpose(-1, -2) @ Wl[:, ks, cols]
+            t = (1.0 if Jt == I else 2.0) * (m[:, rows, None] * m[:, None, cols]) * (
+                K - alpha[:, rows, None] * alpha[:, None, cols])
+            d2 = [x[rows, cols][None] for x in d2s]
+            us = []
+            for q, dj in enumerate(dims):
+                u = 0.0
+                for d in range(dj):
+                    u = u + ss[offs[q] + d][:, None, None] * d2[offs[q] + d]
+                us.append(u)
+            phis = [_phi(f, u, x) for f, u, x in zip(families, us, abc)]
+            for q, fam in enumerate(families):
+                x = t
+                if prod:
+                    for k in range(J):
+                        if k != q:
+                            x = x * phis[k]
+                if not prod or q == 0:
+                    sv[q] = sv[q] + torch.sum(x * phis[q], dim=(1, 2))
+                if fam in ("rq", "periodic_se"):
+                    sa[q] = sa[q] + torch.sum(x * _phi_dalpha(fam, us[q], abc[q]), dim=(1, 2))
+                du = x * _phi_prime(fam, us[q], abc[q])
+                for d in range(dims[q]):
+                    k = offs[q] + d
+                    sd[k] = sd[k] + torch.sum(du * d2[k], dim=(1, 2))
+            if Jt == I:
+                diag = torch.diagonal(K, dim1=-2, dim2=-1) - alpha[:, rows] ** 2
+                sn = sn + torch.sum(m[:, rows] * diag, dim=-1)
+    c = 0.5 * g
+    P = 1.0
+    for v in vs:
+        P = P * v
+    dv, dl, dal = [], [None] * JD, []
+    for q, fam in enumerate(families):
+        scale = P if prod else vs[q]
+        dv.append(c * sv[0] * (P / vs[q]) if prod else c * sv[q])
+        for d in range(dims[q]):
+            k = offs[q] + d
+            dl[k] = c * scale * sd[k] * (-2.0 / (ls[k] ** 3))
+        dal.append(c * scale * sa[q] if fam in ("rq", "periodic_se")
+                   else torch.zeros_like(vs[q]))
+    return (torch.stack(dv), torch.stack(dl), torch.stack(dal), c * sn,
+            g[:, None] * alpha)
+
+
+def grad_units(n: int) -> int:
+    """CTAs a model of the backward kernel at N (its units: a tile row and
+    up to four tile columns of K⁻¹ each); they depend on N alone."""
+    return _lib().stationary_nll_grad_units(n)
+
+
+def stationary_nll_grad_cuda(families, combine, dims, d2s, W, a, g, vs, ls, als,
+                             mask):
+    """Launch the backward kernel (two launches, counted once); the plain
+    twin's contract. It forms no gradient of the d2s."""
+    B, N = a.shape
+    J, JD = len(families), sum(dims)
+    if N > MAX_FUSED_N:
+        raise ValueError(f"the stationary NLL backward takes N <= {MAX_FUSED_N}, got {N}")
+    for t in [d2s, W, a, g, vs, ls] + [x for x in (als, mask) if x is not None]:
+        if t.device.type != "cuda" or t.dtype != torch.float32:
+            raise TypeError("the stationary NLL backward takes float32 CUDA tensors, "
+                            f"got {t.dtype} on {t.device}")
+    if (d2s.shape != (JD, N, N) or W.shape != (B, N, N) or g.shape != (B,)
+            or vs.shape != (J, B) or ls.shape != (JD, B)
+            or (als is not None and als.shape != (J, B))
+            or (mask is not None and mask.shape != (B, N))):
+        raise ValueError("stationary NLL backward operand shapes do not agree")
+    d2s, W, a, g, vs, ls = (t.contiguous() for t in (d2s, W, a, g, vs, ls))
+    als = None if als is None else als.contiguous()
+    mask = None if mask is None else mask.contiguous()
+    lib = _lib()
+    dev = a.device
+    opts = dict(dtype=torch.float32, device=dev)
+    alpha, derr = torch.empty((B, N), **opts), torch.empty((B, N), **opts)
+    part = torch.empty((B, grad_units(N), 2 * J + JD + 1), **opts)
+    dv, dal = torch.empty((J, B), **opts), torch.empty((J, B), **opts)
+    dl, dnoise = torch.empty((JD, B), **opts), torch.empty((B,), **opts)
+    fam = (ctypes.c_int * J)(*[_FAMILY_CODE[f] for f in families])
+    dim = (ctypes.c_int * J)(*dims)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.stationary_nll_grad_launch(
+            _ptr(d2s), _ptr(W), _ptr(a), _ptr(g), _ptr(mask), _ptr(vs), _ptr(ls), _ptr(als),
+            _ptr(alpha), _ptr(part), _ptr(cuda_build.tickets(dev, stream, B)), _ptr(dv), _ptr(dl),
+            _ptr(dal), _ptr(dnoise), _ptr(derr), B, N, J, fam, dim,
+            1 if combine == "prod" else 0, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"stationary_nll_grad launch failed: CUDA error {rc}")
+    LAUNCHES["stationary_nll_grad"] += 1
+    return dv, dl, dal, dnoise, derr
+
+
+def _grad_kernel(plain, W, d2_needs_grad):
+    """Does this backward take the kernel? CUDA tensors of the kernel's
+    forward whose d2s need no gradient."""
+    return not plain and W.device.type == "cuda" and not d2_needs_grad
+
+
+def stationary_nll_grad_torch(families, combine, dims, d2s, W, a, g, vs, ls, als,
+                              mask, need_d2):
+    """The closed form in torch.matmul and elementwise passes over (B, N, N),
+    a line-for-line port of `_stg_bwd`: (dd2s (JD, N, N) when `need_d2`,
+    else None, derr, dv, dl, dal, dnoise) on the kernel's operands (mask a
+    tensor)."""
+    Wt = W.transpose(-1, -2)
+    Kinv = Wt @ W
+    alpha = (Wt @ a[..., None])[..., 0]
+    dKbar = g[:, None, None] * 0.5 * (
+        Kinv - alpha[:, :, None] * alpha[:, None, :])
+    T = dKbar * (mask[:, :, None] * mask[:, None, :])
+    ss = 1.0 / (ls * ls)
+    offs = _offsets(dims)
+    us = []  # per-atom φ argument u_j = Σ_d s_{j,d} d2_{j,d}
+    for j, dj in enumerate(dims):
+        u = 0.0
+        for d in range(dj):
+            k = offs[j] + d
+            u = u + ss[k][:, None, None] * d2s[k][None]
+        us.append(u)
+    abc = [al[:, None, None] for al in als]
+    phis = [_phi(fam, u, ab) for fam, u, ab in zip(families, us, abc)]
+    P = 1.0
+    for v in vs:
+        P = P * v
+    dvs, dals = [], []
+    dls = [None] * ls.shape[0]
+    dd2s = [None] * d2s.shape[0]
+    for j, fam in enumerate(families):
+        if combine == "sum":
+            # K = Σ_k v_k φ_k: ∂K/∂v_j = φ_j, ∂K/∂u_j = v_j φ'_j
+            dv_j = torch.sum(T * phis[j], dim=(1, 2))
+            wj = vs[j][:, None, None]
+        else:
+            # K = Π_k v_k φ_k: ∂K/∂v_j = (Π v) φ_j Π_{k≠j} φ_k / v_j
+            other = 1.0
+            for k2 in range(len(families)):
+                if k2 != j:
+                    other = other * phis[k2]
+            dv_j = torch.sum(T * other * phis[j], dim=(1, 2)) * (P / vs[j])
+            wj = P[:, None, None] * other
+        du_j = wj * T * _phi_prime(fam, us[j], abc[j])
+        for d in range(dims[j]):
+            k = offs[j] + d
+            ds_k = torch.sum(du_j * d2s[k][None], dim=(1, 2))
+            dls[k] = ds_k * (-2.0 / (ls[k] ** 3))
+            if need_d2:
+                dd2s[k] = torch.sum(ss[k][:, None, None] * du_j, dim=0)
+        if fam in ("rq", "periodic_se"):
+            dal_pre = wj * T * _phi_dalpha(fam, us[j], abc[j])
+            dal_j = torch.sum(dal_pre, dim=(1, 2))
+        else:
+            dal_j = torch.zeros_like(als[j])
+        dvs.append(dv_j)
+        dals.append(dal_j)
+    diag_dK = torch.diagonal(dKbar, dim1=-2, dim2=-1)
+    dnoise = torch.sum(diag_dK * mask, dim=-1)
+    derr = g[:, None] * alpha
+    return (torch.stack(dd2s) if need_d2 else None, derr, torch.stack(dvs),
+            torch.stack(dls), torch.stack(dals), dnoise)
+
+
 # -- autograd: the masked sum/product path (_stg_fwd / _stg_bwd) ------------
 
 class _GeneralNLL(torch.autograd.Function):
@@ -290,7 +513,7 @@ class _GeneralNLL(torch.autograd.Function):
         args = (families, combine, dims, d2s, err, vs, ss, als, noise, mask,
                 with_inverse)
         nll, W, a = fwd(*args) if plain else fwd(*args, "stationary_nll_general")
-        ctx.meta = (families, combine, dims)
+        ctx.meta = (families, combine, dims, plain)
         if with_inverse:
             ctx.save_for_backward(d2s, err, vs, ls, als, noise, mask, W, a)
         return nll
@@ -298,68 +521,17 @@ class _GeneralNLL(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         with span("nll.backward"):
-            families, combine, dims = ctx.meta
+            families, combine, dims, plain = ctx.meta
             d2s, err, vs, ls, als, noise, mask, W, a = ctx.saved_tensors
             need = ctx.needs_input_grad
-            Wt = W.transpose(-1, -2)
-            Kinv = Wt @ W
-            alpha = (Wt @ a[..., None])[..., 0]
-            dKbar = g[:, None, None] * 0.5 * (
-                Kinv - alpha[:, :, None] * alpha[:, None, :])
-            T = dKbar * (mask[:, :, None] * mask[:, None, :])
-            ss = 1.0 / (ls * ls)
-            offs, o = [], 0  # atom-major offsets into the flat d2s/ls stacks
-            for dj in dims:
-                offs.append(o)
-                o += dj
-            us = []  # per-atom φ argument u_j = Σ_d s_{j,d} d2_{j,d}
-            for j, dj in enumerate(dims):
-                u = 0.0
-                for d in range(dj):
-                    k = offs[j] + d
-                    u = u + ss[k][:, None, None] * d2s[k][None]
-                us.append(u)
-            abc = [al[:, None, None] for al in als]
-            phis = [_phi(fam, u, ab) for fam, u, ab in zip(families, us, abc)]
-            P = 1.0
-            for v in vs:
-                P = P * v
-            dvs, dals = [], []
-            dls = [None] * ls.shape[0]
-            dd2s = [None] * d2s.shape[0]
-            for j, fam in enumerate(families):
-                if combine == "sum":
-                    # K = Σ_k v_k φ_k: ∂K/∂v_j = φ_j, ∂K/∂u_j = v_j φ'_j
-                    dv_j = torch.sum(T * phis[j], dim=(1, 2))
-                    wj = vs[j][:, None, None]
-                else:
-                    # K = Π_k v_k φ_k: ∂K/∂v_j = (Π v) φ_j Π_{k≠j} φ_k / v_j
-                    other = 1.0
-                    for k2 in range(len(families)):
-                        if k2 != j:
-                            other = other * phis[k2]
-                    dv_j = torch.sum(T * other * phis[j], dim=(1, 2)) * (P / vs[j])
-                    wj = P[:, None, None] * other
-                du_j = wj * T * _phi_prime(fam, us[j], abc[j])
-                for d in range(dims[j]):
-                    k = offs[j] + d
-                    ds_k = torch.sum(du_j * d2s[k][None], dim=(1, 2))
-                    dls[k] = ds_k * (-2.0 / (ls[k] ** 3))
-                    dd2s[k] = torch.sum(ss[k][:, None, None] * du_j, dim=0)
-                if fam in ("rq", "periodic_se"):
-                    dal_pre = wj * T * _phi_dalpha(fam, us[j], abc[j])
-                    dal_j = torch.sum(dal_pre, dim=(1, 2))
-                else:
-                    dal_j = torch.zeros_like(als[j])
-                dvs.append(dv_j)
-                dals.append(dal_j)
-            diag_dK = torch.diagonal(dKbar, dim1=-2, dim2=-1)
-            dnoise = torch.sum(diag_dK * mask, dim=-1)
-            derr = g[:, None] * alpha
-            return (None, None, None, None,
-                    torch.stack(dd2s) if need[4] else None,
-                    derr, torch.stack(dvs), torch.stack(dls), torch.stack(dals),
-                    dnoise, None)
+            if _grad_kernel(plain, W, need[4]):
+                with span("nll.grad_kernel"):
+                    dv, dl, dal, dnoise, derr = stationary_nll_grad_cuda(
+                        families, combine, dims, d2s, W, a, g, vs, ls, als, mask)
+                return None, None, None, None, None, derr, dv, dl, dal, dnoise, None
+            dd2s, derr, dv, dl, dal, dnoise = stationary_nll_grad_torch(
+                families, combine, dims, d2s, W, a, g, vs, ls, als, mask, need[4])
+            return None, None, None, None, dd2s, derr, dv, dl, dal, dnoise, None
 
 
 def _general(families, combine, dims, d2s, err, vs, ls, als, noise, mask,
@@ -432,7 +604,7 @@ class _SingleNLL(torch.autograd.Function):
             nll, W, a = stationary_nll_forward_plain(*args)
         else:
             nll, W, a = stationary_nll_forward(*args, "stationary_nll")
-        ctx.family = family
+        ctx.family, ctx.plain = family, plain
         if with_inverse:
             ctx.save_for_backward(d2, err, v, l, nz, W, a)
         return nll
@@ -442,25 +614,14 @@ class _SingleNLL(torch.autograd.Function):
         with span("nll.backward"):
             family = ctx.family
             d2, err, v, l, nz, W, a = ctx.saved_tensors
-            Wt = W.transpose(-1, -2)
-            Kinv = Wt @ W
-            alpha = (Wt @ a[..., None])[..., 0]
-            dKbar = g[:, None, None] * 0.5 * (
-                Kinv - alpha[:, :, None] * alpha[:, None, :])
-            s = 1.0 / (l * l)
-            u = s[:, None, None] * d2[None]
-            E = _phi(family, u)
-            dphi = _phi_prime(family, u)
-            dv = torch.sum(dKbar * E, dim=(1, 2))
-            darg = v[:, None, None] * dKbar * dphi  # ∂NLL/∂u elementwise
-            ds = torch.sum(darg * d2[None], dim=(1, 2))
-            dl = ds * (-2.0 / (l * l * l))
-            dd2 = (torch.sum(s[:, None, None] * darg, dim=0)
-                   if ctx.needs_input_grad[2] else None)
-            dnoise = g * 0.5 * (torch.diagonal(Kinv, dim1=-2, dim2=-1).sum(-1)
-                                - torch.sum(alpha * alpha, dim=-1))
-            derr = g[:, None] * alpha
-            return None, None, dd2, derr, dv, dl, dnoise
+            args = ((family,), "prod", (1,), d2[None], W, a, g, v[None], l[None])
+            if _grad_kernel(ctx.plain, W, ctx.needs_input_grad[2]):
+                with span("nll.grad_kernel"):
+                    dv, dl, _, dnoise, derr = stationary_nll_grad_cuda(*args, None, None)
+                return None, None, None, derr, dv[0], dl[0], dnoise
+            dd2s, derr, dv, dl, _, dnoise = stationary_nll_grad_torch(
+                *args, torch.ones_like(v)[None], torch.ones_like(err), ctx.needs_input_grad[2])
+            return None, None, None if dd2s is None else dd2s[0], derr, dv[0], dl[0], dnoise
 
 
 def batched_nll_stationary(d2, err, variance, lengthscale, noise, family):

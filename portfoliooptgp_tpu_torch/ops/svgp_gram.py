@@ -41,6 +41,7 @@ from typing import NamedTuple
 
 import torch
 
+from portfoliooptgp_tpu_torch.ops import cuda_build
 from portfoliooptgp_tpu_torch.ops.stationary_nll import _phi, _phi_prime
 
 LANES = 128  # the TPU kernel's lane budget for D, kept as the eligibility rule
@@ -192,8 +193,6 @@ _LIB = None
 def _lib():
     global _LIB
     if _LIB is None:
-        from portfoliooptgp_tpu_torch.ops import cuda_build
-
         lib = cuda_build.load("svgp_gram")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.svgp_gram_fwd_launch.restype = i32
@@ -216,20 +215,6 @@ def blocks_per_sm(backward: bool, launch: Launch, D: int) -> int:
     if rc != 0:
         raise RuntimeError(f"svgp_gram_blocks_per_sm failed: CUDA error {rc}")
     return out.value
-
-
-# The arrival tickets of the kernels' last-CTA reductions: zeros, which every
-# launch leaves zero. One buffer per stream, since launches on one stream
-# never overlap.
-_TICKETS: dict = {}
-
-
-def _tickets(device, stream, n):
-    key = (device, stream)
-    buf = _TICKETS.get(key)
-    if buf is None or buf.numel() < n:
-        buf = _TICKETS[key] = torch.zeros((max(n, 1024),), dtype=torch.int32, device=device)
-    return buf
 
 
 def _cuda_operands(Z, X, y_eff, w, t, v, s, family):
@@ -262,7 +247,7 @@ def gram_fwd_cuda(Z, X, y_eff, w, t, v, s, family):
         stream = torch.cuda.current_stream(Z.device).cuda_stream
         rc = _lib().svgp_gram_fwd_launch(
             *map(_p, ops), ops[6].numel(), _p(G), _p(sq), _p(scratch),
-            _p(_tickets(Z.device, stream, fwd.units)), M, B, D, _FAMILY_CODE[family],
+            _p(cuda_build.tickets(Z.device, stream, fwd.units)), M, B, D, _FAMILY_CODE[family],
             fwd.ranks, fwd.chunk, fwd.smem, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"svgp_gram_fwd kernel launch failed: CUDA error {rc}")
@@ -297,7 +282,7 @@ def gram_bwd_cuda(Z, X, y_eff, w, t, v, s, family, Gbar, sqbar):
         rc = _lib().svgp_gram_bwd_launch(
             *map(_p, ops), ops[6].numel(), _p(Gbar), _p(sqbar),
             _p(zbar), _p(ybar), _p(tbar), _p(vbar), _p(sbar), _p(scratch),
-            _p(_tickets(Z.device, stream, bwd.units + 1)), M, B, D, _FAMILY_CODE[family],
+            _p(cuda_build.tickets(Z.device, stream, bwd.units + 1)), M, B, D, _FAMILY_CODE[family],
             bwd.ranks, bwd.chunk, bwd.kc, bwd.smem, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"svgp_gram_bwd kernel launch failed: CUDA error {rc}")

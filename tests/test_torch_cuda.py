@@ -8,10 +8,13 @@ Run on the card with
 `python -m pytest --noconftest tests/test_torch_cuda.py -m cuda`.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from portfoliooptgp_tpu_torch.ops import stationary_nll as st
 
 pytestmark = pytest.mark.cuda
@@ -244,6 +247,228 @@ def test_torch_cuda_stationary_cluster_kernel_independent_of_batch(cuda, N):
     for got in outs[1:]:
         for g, alone in zip(got, outs[0]):
             assert torch.equal(g, alone)
+
+
+# -- the stationary NLL backward (csrc/stationary_nll.cu: stationary_nll_grad_kernel) --
+
+def _grad_pair(fn, d2s, others, g=None):
+    """Gradients of Σ nll·g through `fn(d2s, *others)` for each operand in
+    `others`, once on the backward kernel (d2s need no gradient) and once
+    on the torch closed form (d2s need one), and g (a ramp unless given);
+    the kernel's launch count moves by one, the closed form's by none."""
+    out = []
+    for d2_grad in (False, True):
+        d = [x.detach().clone().requires_grad_(d2_grad) for x in d2s]
+        leaves = [x.detach().clone().requires_grad_(True) for x in others]
+        before = st.LAUNCHES["stationary_nll_grad"], st.kernel_launches()["grad"]
+        nll = fn(d, *leaves)
+        if g is None:
+            g = torch.linspace(-1.0, 1.5, nll.shape[0], device=nll.device)
+        grads = torch.autograd.grad(torch.sum(nll * g), leaves)
+        torch.cuda.synchronize()
+        moved = 0 if d2_grad else 1
+        assert st.LAUNCHES["stationary_nll_grad"] == before[0] + moved
+        assert st.kernel_launches()["grad"] == before[1] + moved
+        out.append(grads)
+    return out[0], out[1], g
+
+
+def _gap(got, want):
+    """The largest gap over the gradients, each normalized by max(|want|, 1)."""
+    worst = 0.0
+    for x, w in zip(got, want):
+        scale = max(float(w.abs().max()), 1.0)
+        worst = max(worst, float((x.double() - w).abs().max()) / scale)
+    return worst
+
+
+def _assert_kernel_as_close(label, kernel, closed, truth):
+    """The kernel's float32 gradients as close to the float64 closed form on
+    the same W and a as the torch closed form's float32 ones are (within 3
+    times their gap, or 1e-5)."""
+    assert all(torch.all(torch.isfinite(x)) for x in kernel), label
+    gk, gt = _gap(kernel, truth), _gap(closed, truth)
+    print(f"grad kernel {label}: normalized gap to float64 {gk:.3e}, torch closed form's {gt:.3e}")
+    assert gk <= max(3.0 * gt, 1e-5), f"{label}: kernel gap {gk:.3e}, closed form's {gt:.3e}"
+
+
+def _general_grads(families, dims, combine, B, N, masked, seed):
+    d2s, err, vs, ls, als, noise, mask = cs.general_operands(families, dims, B, N, masked, seed)
+    fn = {"prod": st.batched_nll_stationary_general, "sum": st.batched_nll_stationary_sum}[combine]
+    J, JD = len(vs), len(ls)
+
+    def call(d, e, nz, *rest):
+        v, l, a = rest[:J], rest[J:J + JD], rest[J + JD:]
+        return fn(families, d, e, v, l, a, nz, mask, dims=dims)
+
+    kernel, closed, g = _grad_pair(call, d2s, [err, noise] + vs + ls + als)
+    D2, V, L, A = (torch.stack(x) for x in (d2s, vs, ls, als))
+    with torch.no_grad():
+        _, W, a = st.stationary_nll_forward_cuda(families, combine, dims, D2, err, V,
+                                                 1.0 / (L * L), A, noise, mask, True,
+                                                 "stationary_nll_general")
+        _, derr, dv, dl, dal, dnoise = st.stationary_nll_grad_torch(
+            families, combine, dims, *(x.double() for x in (D2, W, a, g, V, L, A, mask)), False)
+    truth = [derr, dnoise, *dv, *dl, *dal]
+    _assert_kernel_as_close(f"{families} {dims} {combine} ({B}, {N}) masked={masked}",
+                            kernel, closed, truth)
+
+
+@pytest.mark.parametrize("N", [40, 77, 256, 257, 512])
+@pytest.mark.parametrize("case", ["m12xm12 prod masked", "se x rq ARD sum masked",
+                                  "periodic + linear sum"])
+def test_torch_cuda_stationary_grad_kernel_edges(cuda, case, N):
+    """The backward kernel against the torch closed form on the same
+    forward's W and a, on both sides of the tile and cluster kernels' edge
+    (one, three, eight, nine and sixteen tile rows)."""
+    families, dims, combine, masked = {
+        "m12xm12 prod masked": (("matern12", "matern12"), (1, 1), "prod", True),
+        "se x rq ARD sum masked": (("se", "rq"), (3, 1), "sum", True),
+        "periodic + linear sum": (("periodic_se", "linear"), (1, 1), "sum", False)}[case]
+    _general_grads(families, dims, combine, 5, N, masked, 2100 + N)
+
+
+@pytest.mark.parametrize("combine", ["prod", "sum"])
+@pytest.mark.parametrize("family", st.GENERAL_FAMILIES)
+def test_torch_cuda_stationary_grad_kernel_families(cuda, family, combine):
+    """Each of the 7 families beside an SE atom, summed and multiplied,
+    masked, on the backward kernel against the torch closed form."""
+    _general_grads((family, "se"), (1, 1), combine, 6, 300,
+                   True, 2200 + st.GENERAL_FAMILIES.index(family))
+
+
+@pytest.mark.parametrize("case", ["nuts (128, 512) ARD D=4", "wf2y (80, 504) m12xm12 masked"])
+def test_torch_cuda_stationary_grad_kernel_cell_shapes(cuda, case):
+    """The benchmark cells' general-path shapes: the NUTS cell's 128
+    chains of ARD SE over D = 4 at N = 512, unmasked; the walk-forward's
+    80 rows of the masked Matern12 × Matern12 product at N = 504."""
+    if case.startswith("nuts"):
+        _general_grads(("se",), (4,), "prod", 128, 512, False, 2300)
+    else:
+        _general_grads(("matern12", "matern12"), (1, 1), "prod", 80, 504, True, 2301)
+
+
+@pytest.mark.parametrize("B,N", [(32, 256), (2560, 262)])
+@pytest.mark.parametrize("family", st.FAMILIES)
+def test_torch_cuda_stationary_grad_kernel_single(cuda, family, B, N):
+    """The single-family path (`batched_nll_stationary`, the ICM cell's
+    (2560, 262) among them) on the backward kernel against its torch closed
+    form."""
+    d2s, err, vs, ls, _, noise, _ = cs.general_operands((family,), (1,), B, N, False,
+                                                        2400 + N + st.FAMILIES.index(family))
+
+    def call(d, e, v, l, nz):
+        return st.batched_nll_stationary(d[0], e, v, l, nz, family)
+
+    kernel, closed, g = _grad_pair(call, d2s, [err, vs[0], ls[0], noise])
+    one = torch.ones_like(vs[0])[None]
+    with torch.no_grad():
+        _, W, a = st.stationary_nll_forward_cuda((family,), "prod", (1,), d2s[0][None], err,
+                                                 vs[0][None], 1.0 / (ls[0] * ls[0])[None], one,
+                                                 noise, None, True, "stationary_nll")
+        _, derr, dv, dl, _, dnoise = st.stationary_nll_grad_torch(
+            (family,), "prod", (1,), *(x.double() for x in (
+                d2s[0][None], W, a, g, vs[0][None], ls[0][None], one, torch.ones_like(err))),
+            False)
+    _assert_kernel_as_close(f"single {family} ({B}, {N})", kernel, closed,
+                            [derr, dv[0], dl[0], dnoise])
+
+
+@pytest.mark.parametrize("label", list(cs.GRAD_GOLDEN_CASES))
+def test_torch_cuda_stationary_grad_kernel_matches_jax(cuda, label):
+    """The backward kernel against jax.grad of the JAX package's NLL in
+    float64 (tests/goldens_torch/stationary_grad.json, on the same operands:
+    the golden's models, float32 values, repeated to the case's B, the
+    benchmark cells' shapes among them), through the autograd path the main
+    path takes (the d2s need no gradient). Its gradients are as close to
+    JAX's as the torch closed form's are on the same float32 operands:
+    within 3 times the larger of the closed form's gaps in two orders of
+    its float32 sums, on the card (the d2s need a gradient) and on the CPU
+    from the card's W and a (the golden's models), or 1e-5. The sums cancel
+    far below their terms' scale, so one float32 order can land 2-4 times
+    closer than another."""
+    families, dims, combine, B, N, masked, single = cs.GRAD_GOLDEN_CASES[label]
+    with open(cs.GRAD_GOLDENS) as fh:
+        want = json.load(fh)["cases"][label]
+    ops = cs.grad_golden_operands(label)
+    assert cs.grad_golden_checksum(ops) == pytest.approx(want["checksum"], rel=1e-12)
+    rep = -(-B // cs.GRAD_GOLDEN_MODELS)
+
+    def models(x, dtype=torch.float32):  # the golden's models, repeated to B
+        x = np.asarray(x)
+        return torch.tensor(np.tile(x, (rep,) + (1,) * (x.ndim - 1))[:B], dtype=dtype,
+                            device=cuda)
+
+    d2s, err, vs, ls, als, noise, mask, g = ops
+    d2s = [torch.tensor(d, dtype=torch.float32, device=cuda) for d in d2s]
+    err, noise, mask, g = models(err), models(noise), models(mask), models(g)
+    vs, ls, als = ([models(x) for x in xs] for xs in (vs, ls, als))
+    derr, dnoise = models(want["derr"], torch.float64), models(want["dnoise"], torch.float64)
+    dv, dl, dal = ([models(x, torch.float64) for x in want[k]] for k in ("dv", "dl", "dal"))
+    if single:
+        def call(d, e, v, l, nz):
+            return st.batched_nll_stationary(d[0], e, v, l, nz, families[0])
+
+        others, truth = [err, vs[0], ls[0], noise], [derr, dv[0], dl[0], dnoise]
+    else:
+        fn = {"prod": st.batched_nll_stationary_general, "sum": st.batched_nll_stationary_sum}
+        J, JD = len(vs), len(ls)
+
+        def call(d, e, nz, *rest):
+            v, l, a = rest[:J], rest[J:J + JD], rest[J + JD:]
+            return fn[combine](families, d, e, v, l, a, nz, mask, dims=dims)
+
+        others, truth = [err, noise] + vs + ls + als, [derr, dnoise, *dv, *dl, *dal]
+    kernel, closed, _ = _grad_pair(call, d2s, others, g)
+    assert all(torch.all(torch.isfinite(x)) for x in kernel), label
+    n, D2 = cs.GRAD_GOLDEN_MODELS, torch.stack(d2s)
+    V, L, A = (torch.stack(x) for x in (vs, ls, als))
+    A = torch.ones_like(V) if single else A
+    with torch.no_grad():
+        _, W, a = st.stationary_nll_forward_cuda(
+            families, combine, dims, D2, err, V, 1.0 / (L * L), A, noise,
+            None if single else mask, True,
+            "stationary_nll" if single else "stationary_nll_general")
+        _, *cpu = st.stationary_nll_grad_torch(
+            families, combine, dims, *(x.cpu() for x in (D2, W[:n], a[:n], g[:n], V[:, :n],
+                                                         L[:, :n], A[:, :n], mask[:n])), False)
+    derr_c, dv_c, dl_c, dal_c, dnoise_c = cpu
+    cpu = ([derr_c, dv_c[0], dl_c[0], dnoise_c] if single
+           else [derr_c, dnoise_c, *dv_c, *dl_c, *dal_c])
+    gk, gt = _gap(kernel, truth), _gap(closed, truth)
+    gc = _gap(cpu, [x[:n].cpu() for x in truth])
+    print(f"grad kernel {label}: normalized gap to JAX float64 {gk:.3e}, torch closed form's "
+          f"{gt:.3e} on the card, {gc:.3e} on the CPU")
+    assert gk <= max(3.0 * max(gt, gc), 1e-5), f"{label}: kernel gap {gk:.3e}, closed form's " \
+        f"{gt:.3e} and {gc:.3e}"
+
+
+@pytest.mark.parametrize("N", [77, 262, 512])
+def test_torch_cuda_stationary_grad_kernel_independent_of_batch(cuda, N):
+    """A model's gradient from the backward kernel has the same bits alone,
+    as the first of a batch of 3, 20 or 40, and in a second run: every
+    order of its sums depends on N alone."""
+    families, dims = ("matern12", "se"), (1, 1)
+    d2s, err, vs, ls, als, noise, mask = cs.general_operands(families, dims, 40, N, True,
+                                                             2500 + N)
+    D2, V, L, A = (torch.stack(x) for x in (d2s, vs, ls, als))
+    with torch.no_grad():
+        _, W, a = st.stationary_nll_forward_cuda(families, "prod", dims, D2, err, V,
+                                                 1.0 / (L * L), A, noise, mask, True,
+                                                 "stationary_nll_general")
+    g = torch.linspace(-1.0, 1.5, 40, device=cuda)
+    outs = []
+    for B in (1, 3, 20, 40, 40):
+        got = st.stationary_nll_grad_cuda(
+            families, "prod", dims, D2, W[:B].contiguous(), a[:B].contiguous(), g[:B].contiguous(),
+            V[:, :B].contiguous(), L[:, :B].contiguous(), A[:, :B].contiguous(),
+            mask[:B].contiguous())
+        dv, dl, dal, dnoise, derr = got
+        outs.append([dv[:, :1], dl[:, :1], dal[:, :1], dnoise[:1], derr[:1]])
+    torch.cuda.synchronize()
+    for got in outs[1:]:
+        for x, alone in zip(got, outs[0]):
+            assert torch.equal(x, alone)
 
 
 # -- the blocked tier's panel kernel (csrc/blocked_panel.cu) ----------------

@@ -24,7 +24,7 @@ def test_torch_cuda_build_sources_list_their_headers():
                                                      "hopper_async.cuh", "nll_tile.cuh"]
     assert cuda_build._source_files("trinv") == ["trinv.cu", "hopper_async.cuh"]
     assert cuda_build._source_files("stationary_nll") == ["stationary_nll.cu", "chol_tile.cuh",
-                                                          "nll_tile.cuh"]
+                                                          "hopper_async.cuh", "nll_tile.cuh"]
     for name in cuda_build.SOURCES:
         for f in cuda_build._source_files(name):
             assert os.path.exists(os.path.join(cuda_build.CSRC, f))
@@ -32,7 +32,7 @@ def test_torch_cuda_build_sources_list_their_headers():
 
 def test_torch_cuda_build_header_edit_changes_library_path(tmp_path, monkeypatch):
     """Editing a header's bytes in a copy of csrc/ moves the library path of
-    the three sources that include it, and of no other source; editing a
+    the four sources that include it, and of no other source; editing a
     source moves its own path only."""
     dst = _copy_csrc(tmp_path, monkeypatch)
     before = {name: cuda_build.library_path(name) for name in cuda_build.SOURCES}
@@ -40,7 +40,7 @@ def test_torch_cuda_build_header_edit_changes_library_path(tmp_path, monkeypatch
         fh.write(b"// edited\n")
     after = {name: cuda_build.library_path(name) for name in cuda_build.SOURCES}
     changed = {name for name in cuda_build.SOURCES if before[name] != after[name]}
-    assert changed == {"blocked_panel", "trinv", "dense_nll"}
+    assert changed == {"blocked_panel", "trinv", "dense_nll", "stationary_nll"}
     with open(dst / "dense_nll.cu", "ab") as fh:
         fh.write(b"// edited\n")
     again = {name: cuda_build.library_path(name) for name in cuda_build.SOURCES}

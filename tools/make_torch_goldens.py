@@ -120,6 +120,18 @@ writes tests/goldens_torch/walk_forward_long.json: per case and precision
 the per-day losses, next-day means and variances:
 
     JAX_PLATFORMS=cpu python tools/make_torch_goldens.py --walk-forward
+
+With `--stationary-grad` it takes jax.grad, in float64, of the JAX
+package's stationary NLL (`batched_nll_stationary` for the single-family
+cases, `batched_nll_stationary_general` or `_sum` for the others) weighted
+by the cotangent g, for every case of `chip_smoke.GRAD_GOLDEN_CASES` on
+`chip_smoke.grad_golden_operands` (float32 values), and writes
+tests/goldens_torch/stationary_grad.json: per case the operands' checksum,
+the NLLs and the gradients of err, the variances, the lengthscales, the
+second shape parameters and the noise. tests/test_torch_cuda.py holds the
+port's backward kernel against it on the card. About 2 min on one core:
+
+    JAX_PLATFORMS=cpu python tools/make_torch_goldens.py --stationary-grad
 """
 
 from __future__ import annotations
@@ -765,6 +777,47 @@ def frontier_nuts() -> int:
     return 0
 
 
+def stationary_grad() -> int:
+    from chip_smoke import (GRAD_GOLDEN_CASES, GRAD_GOLDENS, grad_golden_checksum,
+                            grad_golden_operands)
+    from portfoliooptgp_tpu.ops.pallas import stationary_nll as jst
+
+    if FLOAT32:
+        raise SystemExit("--stationary-grad writes float64 gradients only")
+    cases = {}
+    for label, (families, dims, combine, _, _, _, single) in GRAD_GOLDEN_CASES.items():
+        t0 = time.perf_counter()
+        ops = grad_golden_operands(label)
+        d2s, err, vs, ls, als, noise, mask, g = (
+            [jnp.asarray(y) for y in x] if isinstance(x, list) else jnp.asarray(x) for x in ops)
+        if single:
+            def nll_of(err, vs, ls, als, noise):
+                return jst.batched_nll_stationary(d2s[0], err, vs[0], ls[0], noise, families[0])
+        else:
+            fn = {"prod": jst.batched_nll_stationary_general,
+                  "sum": jst.batched_nll_stationary_sum}[combine]
+
+            def nll_of(err, vs, ls, als, noise):
+                return fn(families, tuple(d2s), err, tuple(vs), tuple(ls), tuple(als), noise,
+                          mask, dims=dims)
+
+        args = (err, vs, ls, als, noise)
+        nll = nll_of(*args)
+        derr, dv, dl, dal, dnoise = jax.grad(lambda *x: jnp.sum(g * nll_of(*x)),
+                                             argnums=(0, 1, 2, 3, 4))(*args)
+        cases[label] = dict(
+            checksum=grad_golden_checksum(ops), nll=np.asarray(nll).tolist(),
+            derr=np.asarray(derr).tolist(), dv=[np.asarray(x).tolist() for x in dv],
+            dl=[np.asarray(x).tolist() for x in dl], dal=[np.asarray(x).tolist() for x in dal],
+            dnoise=np.asarray(dnoise).tolist())
+        print(f"{label}: {time.perf_counter() - t0:.1f} s, nll {np.asarray(nll)}", flush=True)
+    out = dict(source="JAX jax.grad of the stationary NLL, float64, CPU "
+                      "(tools/make_torch_goldens.py --stationary-grad)", cases=cases)
+    with open(GRAD_GOLDENS, "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
 def main() -> int:
     from chip_smoke import WALK_LONG_CASES
 
@@ -778,6 +831,8 @@ def main() -> int:
             return 0
     if "--walk-forward" in sys.argv[1:]:
         return walk_forward_long()
+    if "--stationary-grad" in sys.argv[1:]:
+        return stationary_grad()
     if "--nuts" in sys.argv[1:]:
         return frontier_nuts() if "--frontier" in sys.argv[1:] else nuts()
     if "--svgp" in sys.argv[1:]:
